@@ -13,7 +13,7 @@ Run on real hardware, or on a virtual mesh:
 
 Multi-host pods: launch one copy per host with the standard
 jax.distributed env (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-JAX_PROCESS_ID; cloud TPU pods need none). The cluster initializes, the
+JAX_PROCESS_ID; all three are needed). The cluster initializes, the
 single measured point is the FULL global mesh (smaller meshes would need
 non-participating processes to idle inside collective programs), and
 process 0 prints the JSON line; set SCALING_BASE_RATE to a recorded
@@ -41,21 +41,18 @@ NH = 5
 
 
 def main() -> None:
-    import os
-
-    from kwage_tpu.utils.runtime import pin_platform_from_env
-
-    pin_platform_from_env()
     import jax
-
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from kwage_tpu.ops.search import counts_kernel
+    from kwage.ops.search import counts_kernel
 
-    from kwage_tpu.parallel.distributed import init_distributed
+    from kwage.parallel.distributed import init_distributed
+    from kwage.utils.runtime import enable_compile_cache, require_accelerator
 
     multiproc = init_distributed()
+    require_accelerator("bench_scaling.py")
+    enable_compile_cache()
 
     devices = jax.devices()
     rng = np.random.default_rng(0)

@@ -1,5 +1,5 @@
 // Mock libncbi-vdb for testing the ctypes cursor binding
-// (kwage_tpu/sriracha/vdb.py) without the real library.
+// (kwage/sriracha/vdb.py) without the real library.
 //
 // Serves canned per-accession read data from $FAKE_VDB_DIR/<acc>.vdb:
 // one line per spot, fragments separated by '|'. Marker files:

@@ -11,15 +11,15 @@ import sys
 
 import pytest
 
-from kwage_tpu.cli import bloom_diff, dump_bloom, dump_db, inventory_dump, sra_diff
+from kwage.cli import bloom_diff, dump_bloom, dump_db, inventory_dump, sra_diff
 
 
 @pytest.fixture(scope="module")
 def artifacts(golden_dir, data_dir, tmp_path_factory):
     """Rebuild the e2e corpus artifacts with our pipeline."""
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.bloom_file import read_bloom_file, write_bloom_file
-    from kwage_tpu.pipeline import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.bloom_file import read_bloom_file, write_bloom_file
+    from kwage.pipeline import (
         BuildOptions,
         build_bloom_from_file,
         build_db_from_bloom_files,
@@ -108,8 +108,8 @@ def test_bloom_diff_identical_and_different(artifacts, capsys):
 
 
 def test_inventory_roundtrip_and_dump(tmp_path, capsys):
-    from kwage_tpu.core import Date, FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import read_inventory, write_inventory
+    from kwage.core import Date, FilterInfo, str_to_accession
+    from kwage.io.inventory import read_inventory, write_inventory
 
     infos = [
         FilterInfo(
@@ -134,8 +134,8 @@ def test_inventory_roundtrip_and_dump(tmp_path, capsys):
 
 
 def test_sra_diff(tmp_path, capsys):
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
 
     a = [FilterInfo(run_accession=str_to_accession(x)) for x in ("SRR1", "SRR2", "SRR3")]
     b = [FilterInfo(run_accession=str_to_accession(x)) for x in ("SRR2", "SRR4")]

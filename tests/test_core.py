@@ -11,7 +11,7 @@ import json
 import numpy as np
 import pytest
 
-from kwage_tpu.core import (
+from kwage.core import (
     accession_to_str,
     approximate_max_kmers,
     canonical_kmers,
@@ -22,7 +22,7 @@ from kwage_tpu.core import (
     word_to_string,
     string_to_word,
 )
-from kwage_tpu.core.words import sense_antisense_words
+from kwage.core.words import sense_antisense_words
 
 
 def _golden(golden_dir):
@@ -117,7 +117,7 @@ def test_accession_fast_path_matches_general_loop():
 
     import pytest
 
-    from kwage_tpu.core.accession import accession_to_str, str_to_accession
+    from kwage.core.accession import accession_to_str, str_to_accession
 
     def general(accession):
         nl = nd = 0

@@ -8,12 +8,12 @@ import zlib
 import numpy as np
 import pytest
 
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.core.params import BloomParam
-from kwage_tpu.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
-from kwage_tpu.io.db_file import DBFileReader, write_db_file
-from kwage_tpu.io.dbz_file import DBZFileReader, open_database
-from kwage_tpu.pipeline.build_db import build_db_from_bloom_files, transpose_filters
+from kwage.core import FilterInfo, str_to_accession
+from kwage.core.params import BloomParam
+from kwage.io.bloom_file import BloomFilterRecord, read_bloom_file, write_bloom_file
+from kwage.io.db_file import DBFileReader, write_db_file
+from kwage.io.dbz_file import DBZFileReader, open_database
+from kwage.pipeline.build_db import build_db_from_bloom_files, transpose_filters
 
 
 @pytest.fixture()
@@ -82,7 +82,7 @@ def test_db_slice_corruption_detected_by_crc(artifacts):
 
 
 def test_dbz_corrupt_chunk_raises(artifacts, tmp_path):
-    from kwage_tpu.pipeline.build_db import build_dbz_from_bloom_files
+    from kwage.pipeline.build_db import build_dbz_from_bloom_files
 
     _, param, blooms, _ = artifacts
     dbz = tmp_path / "x.dbz"

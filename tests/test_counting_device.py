@@ -1,16 +1,16 @@
 """Device exact-count thresholding vs the host/native parity path and
-exact ground truth (the TPU reformulation of make_bloom.cpp:506-621)."""
+exact ground truth (the device reformulation of make_bloom.cpp:506-621)."""
 
 from collections import Counter
 
 import numpy as np
 import pytest
 
-from kwage_tpu.core import FilterInfo
-from kwage_tpu.core.words import canonical_kmers
-from kwage_tpu.native import murmur32_native
-from kwage_tpu.pipeline import BuildOptions
-from kwage_tpu.pipeline.make_bloom import (
+from kwage.core import FilterInfo
+from kwage.core.words import canonical_kmers
+from kwage.native import murmur32_native
+from kwage.pipeline import BuildOptions
+from kwage.pipeline.make_bloom import (
     build_bloom_device,
     build_bloom_from_sequences,
 )
@@ -123,7 +123,7 @@ def test_device_build_large_filter_host_scatter(reads):
 def test_batched_device_build_matches_single(reads):
     """build_blooms_device_batch == per-accession build_bloom_device for
     every job, including BloomInvalid fault isolation."""
-    from kwage_tpu.pipeline.make_bloom import (
+    from kwage.pipeline.make_bloom import (
         BloomInvalid,
         build_bloom_device,
         build_blooms_device_batch,
@@ -155,7 +155,7 @@ def test_batched_device_build_matches_single(reads):
 def test_batched_device_build_mixed_filter_lengths():
     """Accessions whose distinct-k-mer counts land in different L buckets
     split into per-(L, num_hash) scatter groups and still match."""
-    from kwage_tpu.pipeline.make_bloom import (
+    from kwage.pipeline.make_bloom import (
         build_bloom_device,
         build_blooms_device_batch,
     )
@@ -186,9 +186,9 @@ def test_device_build_parity_envelope():
     reference approximation's, not ours."""
     import numpy as np
 
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.pipeline.make_bloom import (
+    from kwage.core.info import FilterInfo
+    from kwage.core.words import canonical_kmers
+    from kwage.pipeline.make_bloom import (
         BuildOptions,
         build_bloom_device,
         build_bloom_from_sequences,
@@ -223,9 +223,40 @@ def test_device_build_parity_envelope():
     host_a = build_bloom_from_sequences(list(reads), tight, FilterInfo())
     dev_a = build_bloom_device(list(reads), tight, FilterInfo())
     assert dev_a.bits.tobytes() != host_a.bits.tobytes()
-    from kwage_tpu.core.params import optimal_bloom_param
+    from kwage.core.params import optimal_bloom_param
 
     assert dev_a.param == optimal_bloom_param(
         15, exact_valid_count(15, 2), tight.false_positive_probability,
         tight.hash_func, tight.min_log_2_filter_len,
         tight.max_log_2_filter_len)
+
+
+def _pack_strided_reference(image):
+    """The earlier formulation of _pack_bit_image: 32 strided column
+    slices of a [rows, 4096] view, OR-folded with shifts."""
+    import jax.numpy as jnp
+
+    n = image.shape[0]
+    width = min(4096, n)
+    img = image.reshape(-1, width)
+    packed = jnp.zeros((img.shape[0], width // 32), jnp.uint32)
+    for b in range(32):
+        packed = packed | (img[:, b::32].astype(jnp.uint32) << b)
+    return packed.reshape(-1)
+
+
+@pytest.mark.parametrize("log2_len", [5, 6, 9, 12, 13, 15])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_pack_bit_image_matches_strided_formulation(log2_len, density):
+    """The packbits formulation equals the strided one it replaced, and
+    the little-endian word layout of np.packbits viewed as uint32."""
+    import jax.numpy as jnp
+
+    from kwage.ops.counting import _pack_bit_image
+
+    rng = np.random.default_rng(log2_len)
+    image = (rng.random(1 << log2_len) < density).astype(np.uint8)
+    got = np.asarray(_pack_bit_image(jnp.asarray(image)))
+    assert got.dtype == np.uint32 and got.shape == ((1 << log2_len) // 32,)
+    np.testing.assert_array_equal(got, np.asarray(_pack_strided_reference(jnp.asarray(image))))
+    np.testing.assert_array_equal(got, np.packbits(image, bitorder="little").view("<u4"))

@@ -10,13 +10,13 @@ import zlib
 import numpy as np
 import pytest
 
-from kwage_tpu.cli.kwage import main as kwage_main
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.core.params import BloomParam
-from kwage_tpu.io.bloom_file import BloomFilterRecord, write_bloom_file
-from kwage_tpu.io.db_file import DBFileReader
-from kwage_tpu.io.dbz_file import DBZFileReader, open_database
-from kwage_tpu.pipeline import (
+from kwage.cli.kwage import main as kwage_main
+from kwage.core import FilterInfo, str_to_accession
+from kwage.core.params import BloomParam
+from kwage.io.bloom_file import BloomFilterRecord, write_bloom_file
+from kwage.io.db_file import DBFileReader
+from kwage.io.dbz_file import DBZFileReader, open_database
+from kwage.pipeline import (
     BuildOptions,
     build_bloom_from_sequences,
     build_db_from_bloom_files,
@@ -134,7 +134,7 @@ def test_config2_adaptive_multiquery_db_vs_dbz(corpus, tmp_path):
 
 
 def test_merge_db_refuses_dbz(corpus, tmp_path):
-    from kwage_tpu.pipeline.merge_db import merge_database_files
+    from kwage.pipeline.merge_db import merge_database_files
 
     work, groups, _ = corpus
     param, blooms = max(groups.items(), key=lambda kv: len(kv[1]))
@@ -149,8 +149,8 @@ def test_merge_db_refuses_dbz(corpus, tmp_path):
 def test_device_search_multichunk_fusion(corpus, tmp_path, monkeypatch):
     """A tiny fusion budget forces the multi-chunk streaming path; hit
     lists must stay identical to the host engine."""
-    from kwage_tpu.ops.search import search_files_device
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.ops.search import search_files_device
+    from kwage.search.engine import search_database_files
 
     work, groups, queries = corpus
     dbs = []
@@ -180,9 +180,9 @@ def test_device_search_slab_streams_single_wide_file(corpus, tmp_path, monkeypat
     streaming (ops.search.eval_chunk_cols) — the production-L regime,
     where a full 2048-filter file at L=26 is 16 GiB and exceeds HBM.
     Hit lists must stay identical to the host engine."""
-    from kwage_tpu.io.dbz_file import open_database
-    from kwage_tpu.ops.search import search_files_device
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.io.dbz_file import open_database
+    from kwage.ops.search import search_files_device
+    from kwage.search.engine import search_database_files
 
     work, groups, queries = corpus
     param, blooms = max(groups.items(), key=lambda kv: len(kv[1]))
@@ -211,8 +211,8 @@ def test_device_search_slab_streams_single_wide_file(corpus, tmp_path, monkeypat
 def test_resident_slab_streams_single_wide_file(corpus, tmp_path):
     """ResidentSearcher with a budget below one file's size serves via
     per-call column-slab streaming, identical hit lists to the host."""
-    from kwage_tpu.search.engine import search_database_files
-    from kwage_tpu.search.resident import ResidentSearcher
+    from kwage.search.engine import search_database_files
+    from kwage.search.resident import ResidentSearcher
 
     work, groups, queries = corpus
     param, blooms = max(groups.items(), key=lambda kv: len(kv[1]))
@@ -237,8 +237,8 @@ def test_resident_slab_streams_single_wide_file(corpus, tmp_path):
 def test_mixed_db_dbz_fusion(corpus, tmp_path):
     """Same-param .db and .dbz files fuse into one device matrix; hits
     equal the host engine run over the same mixed set."""
-    from kwage_tpu.ops.search import search_files_device
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.ops.search import search_files_device
+    from kwage.search.engine import search_database_files
 
     work, groups, queries = corpus
     param, blooms = max(groups.items(), key=lambda kv: len(kv[1]))
@@ -261,7 +261,7 @@ def test_mixed_db_dbz_fusion(corpus, tmp_path):
 def test_seek_based_search_matches_in_memory(corpus, tmp_path):
     """in_memory=False (per-row seeks, the reference's access pattern,
     kwage.cpp:404-433) must produce identical results."""
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.search.engine import search_database_files
 
     work, groups, queries = corpus
     dbs = []

@@ -4,9 +4,9 @@ harness, sra_dump profiler, sra_meta probe, mem_usage."""
 import numpy as np
 import pytest
 
-from kwage_tpu.cli import bloom_test, db_debug, sra_dump
-from kwage_tpu.pipeline.sra_meta import number_of_bases
-from kwage_tpu.utils import memory_usage
+from kwage.cli import bloom_test, db_debug, sra_dump
+from kwage.pipeline.sra_meta import number_of_bases
+from kwage.utils import memory_usage
 
 
 @pytest.fixture()
@@ -76,7 +76,7 @@ def test_memory_usage_bounds():
 
 
 def test_profiling_scopes():
-    from kwage_tpu.utils import report, reset, scope
+    from kwage.utils import report, reset, scope
 
     reset()
     with scope("unit"):
@@ -89,7 +89,7 @@ def test_profiling_scopes():
 
 
 def test_device_trace_noop_without_env(monkeypatch):
-    from kwage_tpu.utils import device_trace
+    from kwage.utils import device_trace
 
     monkeypatch.delenv("KWAGE_TRACE_DIR", raising=False)
     with device_trace():
@@ -98,7 +98,7 @@ def test_device_trace_noop_without_env(monkeypatch):
 
 
 def test_read_sra_repository(tmp_path):
-    from kwage_tpu.io.ncbi_config import read_sra_repository
+    from kwage.io.ncbi_config import read_sra_repository
 
     cfg = tmp_path / "user-settings.mkfg"
     cfg.write_text(

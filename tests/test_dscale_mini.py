@@ -4,7 +4,7 @@ over TCP build the corpus; the result SET equals a single-process run
 over the same inputs (db packing order legitimately differs under
 dynamic pulling) and the packed corpus searches byte-identically to the
 reference binary when the oracle is present. The full-size run (1000
-accessions) is the tool's default; DSCALE_r03.json records it."""
+accessions) is the tool's default."""
 
 import json
 import os
@@ -15,7 +15,7 @@ import sys
 def test_dscale_mini(tmp_path):
     env = dict(os.environ)
     # The latency-bound phase (8 pre-imported workers) is the FULL run's
-    # proof (DSCALE_r04.json: 2.13x vs single); at mini scale its
+    # proof; at mini scale its
     # speedup floor cannot be met on one core, so skip it here.
     env.update(SCALE_N_ACC="24", SCALE_GENOME="2500", SCALE_WORKERS="2",
                SCALE_SKIP_LATENCY="1")

@@ -11,10 +11,10 @@ import json
 
 import pytest
 
-from kwage_tpu.cli.kwage import main as kwage_main
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.io.bloom_file import read_bloom_file, write_bloom_file
-from kwage_tpu.pipeline import (
+from kwage.cli.kwage import main as kwage_main
+from kwage.core import FilterInfo, str_to_accession
+from kwage.io.bloom_file import read_bloom_file, write_bloom_file
+from kwage.pipeline import (
     BuildOptions,
     build_bloom_from_file,
     build_db_from_bloom_files,
@@ -131,8 +131,8 @@ def test_db_pack_chunked_byte_identical(built, tmp_path):
     boundaries are crossed (build_db.cpp:236-315's 1 GiB tiling analog)."""
     import hashlib
 
-    import kwage_tpu.pipeline.build_db as bdb
-    from kwage_tpu.io.bloom_file import read_bloom_file
+    import kwage.pipeline.build_db as bdb
+    from kwage.io.bloom_file import read_bloom_file
 
     bloom_paths, _ = built
     by_param: dict = {}
@@ -155,7 +155,7 @@ def test_db_pack_chunked_byte_identical(built, tmp_path):
     assert sha(one) == sha(many)
 
     # numpy-twin transpose (native disabled) over the same chunking.
-    import kwage_tpu.native as native
+    import kwage.native as native
     orig = native.transpose_bits_native
     native.transpose_bits_native = lambda *a, **kw: None
     try:

@@ -8,10 +8,10 @@ import os
 import numpy as np
 import pytest
 
-from kwage_tpu.io.status import read_status_file
-from kwage_tpu.io.inventory import write_inventory
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.parallel.maestro import (
+from kwage.io.status import read_status_file
+from kwage.io.inventory import write_inventory
+from kwage.core import FilterInfo, str_to_accession
+from kwage.parallel.maestro import (
     LocalFastaResolver,
     Maestro,
     MaestroOptions,
@@ -85,7 +85,7 @@ def test_full_run_produces_reference_databases(manifest, data_dir, golden_dir, t
 
 
 def test_device_build_produces_reference_databases(manifest, data_dir, golden_dir, tmp_path):
-    """The TPU ingest path (exact-count thresholding on device) reproduces
+    """The device ingest path (exact-count thresholding on device) reproduces
     the golden reference databases byte-for-byte on this corpus: the
     counting filter is collision-free here, so the reference's
     approximation and the exact count agree."""
@@ -105,8 +105,8 @@ def test_device_build_produces_reference_databases(manifest, data_dir, golden_di
 
 def _db_accessions(db_dir):
     """Set of run accessions across every .db file in a directory."""
-    from kwage_tpu.io.dbz_file import open_database
-    from kwage_tpu.core import accession_to_str
+    from kwage.io.dbz_file import open_database
+    from kwage.core import accession_to_str
 
     accs = set()
     for f in os.listdir(db_dir):
@@ -178,7 +178,7 @@ def test_rollback_of_incomplete_bloom(manifest, data_dir, tmp_path):
     m.run()
 
     # Corrupt one bloom (mark in-progress) and claim BLOOM_SUCCESS state.
-    from kwage_tpu.io.status import write_status_file
+    from kwage.io.status import write_status_file
     import numpy as np
 
     bloom = m.bloom_path(0)
@@ -197,7 +197,7 @@ def test_rollback_of_incomplete_bloom(manifest, data_dir, tmp_path):
 def test_streaming_resolver_without_toolkit(manifest, tmp_path):
     """--stream mode: accessions resolve via fasterq-dump; with no SRA
     toolkit installed every download fails cleanly after the retry budget."""
-    from kwage_tpu.parallel.maestro import StreamingResolver
+    from kwage.parallel.maestro import StreamingResolver
 
     accs = manifest["accessions"][:2]
     _write_inventory(manifest, tmp_path, accessions=accs)
@@ -257,9 +257,9 @@ def test_full_vocabulary_status_restore(manifest, data_dir, tmp_path):
     - DATABASE_UPLOAD_FAIL -> never recovered (manual_db territory)
     - DOWNLOAD_FAIL, BLOOM_INVALID, DATABASE_SUCCESS, SKIPPED -> terminal
     """
-    from kwage_tpu.io.status import write_status_file
-    from kwage_tpu.pipeline.make_bloom import build_bloom_from_file
-    from kwage_tpu.io.bloom_file import write_bloom_file
+    from kwage.io.status import write_status_file
+    from kwage.pipeline.make_bloom import build_bloom_from_file
+    from kwage.io.bloom_file import write_bloom_file
 
     real = manifest["accessions"]  # SRR1000000..9 have local sources
     missing = [f"SRR{3000000 + i}" for i in range(30)]
@@ -329,8 +329,8 @@ def test_streaming_mode_state_machine(manifest, data_dir, tmp_path):
     are re-streamed (maestro_main.cpp:1386-1400), and every failure is
     bloom-classed (the streaming worker replies STATUS_BLOOM_FAIL even for
     download errors)."""
-    from kwage_tpu.io.status import write_status_file
-    from kwage_tpu.parallel.maestro import STATUS_BLOOM_FAIL
+    from kwage.io.status import write_status_file
+    from kwage.parallel.maestro import STATUS_BLOOM_FAIL
 
     real = manifest["accessions"][:4]
     accs = real + ["SRR4000000", "SRR4000001"]
@@ -370,7 +370,7 @@ def test_event_loop_opens_no_bloom_headers(manifest, data_dir, tmp_path, monkeyp
     opens ZERO .bloom headers from the event loop -- header reads happen
     only in restore(). Guards against the O(pending) rescan-per-round
     regression."""
-    import kwage_tpu.parallel.maestro as maestro_mod
+    import kwage.parallel.maestro as maestro_mod
 
     _write_inventory(manifest, tmp_path)
     opt = _options(manifest, tmp_path)
@@ -404,8 +404,8 @@ def test_duplicate_bloom_event_absorbed_once(manifest, data_dir, tmp_path):
     workers alive, distinct eids). The event-driven group map must absorb
     the completion once: no duplicate member in the packing group, no
     double-counted totals."""
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.parallel.maestro import STATUS_BLOOM_SUCCESS
+    from kwage.core.params import BloomParam
+    from kwage.parallel.maestro import STATUS_BLOOM_SUCCESS
 
     accs = manifest["accessions"][:2]
     infos = [FilterInfo(run_accession=str_to_accession(a),
@@ -484,8 +484,8 @@ def test_stale_failure_after_success_is_ignored(manifest, data_dir, tmp_path):
     --task-timeout re-dispatch raced a slow worker, or a buffered remote
     event landed late) must not overwrite the completed status or queue a
     spurious rebuild -- the built filter stands."""
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.parallel.maestro import (
+    from kwage.core.params import BloomParam
+    from kwage.parallel.maestro import (
         STATUS_BLOOM_FAIL,
         STATUS_BLOOM_INVALID,
         STATUS_BLOOM_SUCCESS,

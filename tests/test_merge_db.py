@@ -6,16 +6,16 @@ import shutil
 
 import pytest
 
-from kwage_tpu.cli.kwage import main as kwage_main
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.io.bloom_file import read_bloom_file, write_bloom_file
-from kwage_tpu.io.db_file import DBFileReader
-from kwage_tpu.pipeline import (
+from kwage.cli.kwage import main as kwage_main
+from kwage.core import FilterInfo, str_to_accession
+from kwage.io.bloom_file import read_bloom_file, write_bloom_file
+from kwage.io.db_file import DBFileReader
+from kwage.pipeline import (
     BuildOptions,
     build_bloom_from_file,
     build_db_from_bloom_files,
 )
-from kwage_tpu.pipeline.merge_db import merge_database_files, merge_databases
+from kwage.pipeline.merge_db import merge_database_files, merge_databases
 
 
 @pytest.fixture(scope="module")
@@ -119,11 +119,11 @@ def test_merge_matches_reference_binary_digest(tmp_path):
 
     import numpy as np
 
-    from kwage_tpu.cli.merge_db import main as merge_main
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.io.bloom_file import BloomFilterRecord, write_bloom_file
-    from kwage_tpu.pipeline import build_db_from_bloom_files
+    from kwage.cli.merge_db import main as merge_main
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.core.params import BloomParam
+    from kwage.io.bloom_file import BloomFilterRecord, write_bloom_file
+    from kwage.pipeline import build_db_from_bloom_files
 
     rng = np.random.default_rng(5)
     param = BloomParam(kmer_len=31, log_2_filter_len=18, num_hash=3, hash_func=0)

@@ -30,13 +30,13 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.pipeline import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.pipeline import (
         BuildOptions,
         build_bloom_from_file,
         build_db_from_bloom_files,
     )
-    from kwage_tpu.io.bloom_file import write_bloom_file
+    from kwage.io.bloom_file import write_bloom_file
 
     work = tmp_path_factory.mktemp("mh")
     rng = np.random.default_rng(40)
@@ -101,7 +101,7 @@ def test_two_process_mesh_search_matches_host(corpus):
     assert outs[0] == outs[1]
 
     # Equal to the host engine (the reference's output semantics).
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.search.engine import search_database_files
 
     dbs = sorted(str(p) for p in (work / "db").glob("*.db"))
     want = search_database_files(dbs, [(i, q) for i, q in queries], 0.5)

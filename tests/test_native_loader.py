@@ -6,10 +6,10 @@ import gzip
 import numpy as np
 import pytest
 
-from kwage_tpu.core import FilterInfo
-from kwage_tpu.io.sequence import FASTA, FASTQ, iter_sequences
-from kwage_tpu.native import CountingBuilder, available, scan_file_native
-from kwage_tpu.pipeline import BuildOptions, build_bloom_from_file, build_bloom_from_sequences
+from kwage.core import FilterInfo
+from kwage.io.sequence import FASTA, FASTQ, iter_sequences
+from kwage.native import CountingBuilder, available, scan_file_native
+from kwage.pipeline import BuildOptions, build_bloom_from_file, build_bloom_from_sequences
 
 pytestmark = pytest.mark.skipif(not available(), reason="native library unavailable")
 
@@ -118,13 +118,13 @@ def test_native_scan_and_pack_match_python(tmp_path):
     multi-line, lowercase, N-containing, whitespace-laden FASTA."""
     import numpy as np
 
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.native import (
+    from kwage.io.sequence import iter_sequences
+    from kwage.native import (
         available,
         pack_file_native,
         scan_file_batch_native,
     )
-    from kwage_tpu.ops.kmers import pack_reads_host
+    from kwage.ops.kmers import pack_reads_host
 
     if not available():
         import pytest
@@ -170,10 +170,10 @@ def test_vector_mode_and_spill_fold_parity(monkeypatch):
     valid k-mer instead."""
     import numpy as np
 
-    from kwage_tpu.core import FilterInfo
-    from kwage_tpu.native import available
-    from kwage_tpu.native.fallback import PyCountingBuilder
-    from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
+    from kwage.core import FilterInfo
+    from kwage.native import available
+    from kwage.native.fallback import PyCountingBuilder
+    from kwage.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
 
     if not available():
         import pytest
@@ -208,8 +208,8 @@ def test_kn_search_matches_numpy_reduction():
     (kwage.cpp:340-541 semantics; early exit never changes results)."""
     import numpy as np
 
-    from kwage_tpu.native import search_native
-    from kwage_tpu.search.engine import _match_filters, query_threshold_count
+    from kwage.native import search_native
+    from kwage.search.engine import _match_filters, query_threshold_count
 
     rng = np.random.default_rng(7)
     for trial in range(60):
@@ -244,8 +244,8 @@ def test_search_all_native_matches_per_query_twin():
 
     import numpy as np
 
-    from kwage_tpu.native import available, search_all_native
-    from kwage_tpu.search.engine import query_slice_indices, search_database
+    from kwage.native import available, search_all_native
+    from kwage.search.engine import query_slice_indices, search_database
 
     if not available():
         import pytest
@@ -296,14 +296,14 @@ def test_native_wrappers_match_twins_on_non_ascii():
     character-for-character."""
     import numpy as np
 
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.native import (
+    from kwage.core.words import canonical_kmers
+    from kwage.native import (
         available,
         canonical_kmers_native,
         read_profile_native,
         search_all_native,
     )
-    from kwage_tpu.search.engine import search_database
+    from kwage.search.engine import search_database
 
     if not available():
         import pytest
@@ -338,7 +338,7 @@ def test_transpose_bits_native_matches_numpy_twin():
     padded output columns."""
     import numpy as np
 
-    from kwage_tpu.native import transpose_bits_native
+    from kwage.native import transpose_bits_native
 
     rng = np.random.default_rng(42)
     for F, nb in [(1, 1), (7, 3), (8, 8), (63, 9), (64, 8), (65, 17),
@@ -369,11 +369,28 @@ def test_transpose_bits_rejects_truncating_num_filter():
     import numpy as np
     import pytest
 
-    from kwage_tpu.native import transpose_bits_native
-    from kwage_tpu.pipeline.build_db import transpose_filters
+    from kwage.native import transpose_bits_native
+    from kwage.pipeline.build_db import transpose_filters
 
     m = np.zeros((10, 4), dtype=np.uint8)
     with pytest.raises(ValueError):
         transpose_bits_native(m, 2)
     with pytest.raises(ValueError):
         transpose_filters(m, 2)
+
+
+def test_library_cached_per_source_and_machine():
+    """The cached library lives in the ignored build/ directory, named by
+    the source's hash and by what -march=native means on this host."""
+    import os
+    import platform
+
+    from kwage import native
+
+    path = native._build()
+    assert os.path.dirname(path) == native._BUILD_DIR
+    name = os.path.basename(path)
+    assert native._source_tag() in name
+    assert native._machine_tag() in name
+    assert native._machine_tag().startswith(platform.machine() + "-")
+    assert native._machine_tag() == native._machine_tag()  # deterministic

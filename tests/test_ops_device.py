@@ -5,12 +5,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from kwage_tpu.core.hash import murmur32_words
-from kwage_tpu.core.words import canonical_kmers, sense_antisense_words
-from kwage_tpu.ops.kmers import canonical_kmers_device, words_to_u64, u64_to_words
-from kwage_tpu.ops.hashing import murmur32_device, slice_indices_device
-from kwage_tpu.ops.transpose import transpose_chunks_device, transpose_bits_device
-from kwage_tpu.ops.search import (
+from kwage.core.hash import murmur32_words
+from kwage.core.words import canonical_kmers, sense_antisense_words
+from kwage.ops.kmers import canonical_kmers_device, words_to_u64, u64_to_words
+from kwage.ops.hashing import murmur32_device, slice_indices_device
+from kwage.ops.transpose import transpose_chunks_device, transpose_bits_device
+from kwage.ops.search import (
     DeviceSearcher,
     db_bytes_to_words,
     make_query_batch,
@@ -18,7 +18,7 @@ from kwage_tpu.ops.search import (
     search_counts,
     unpack_mask,
 )
-from kwage_tpu.pipeline.build_db import transpose_filters
+from kwage.pipeline.build_db import transpose_filters
 
 rng = np.random.default_rng(7)
 
@@ -62,7 +62,7 @@ def test_device_transpose_matches_host():
 
 def _make_db(num_filter=70, L=2048, k=31, num_hash=3):
     """Synthetic packed filters + transposed db + matching header."""
-    from kwage_tpu.io.db_file import DBFileHeader
+    from kwage.io.db_file import DBFileHeader
 
     filters = rng.integers(0, 256, size=(num_filter, L // 8), dtype=np.uint8)
     slices = transpose_filters(filters)
@@ -109,10 +109,10 @@ def test_device_search_matches_bruteforce():
 
 def test_device_searcher_matches_host_engine(tmp_path):
     """DeviceSearcher hit lists == host engine hit lists on a real .db file."""
-    from kwage_tpu.io.db_file import write_db_file, DBFileReader
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.search.engine import search_database
+    from kwage.io.db_file import write_db_file, DBFileReader
+    from kwage.core.info import FilterInfo
+    from kwage.core.params import BloomParam
+    from kwage.search.engine import search_database
 
     filters, slices, hdr = _make_db(num_filter=12, L=1024, num_hash=2)
     param = BloomParam(kmer_len=31, log_2_filter_len=10, num_hash=2, hash_func=0)
@@ -129,22 +129,20 @@ def test_device_searcher_matches_host_engine(tmp_path):
             assert dev[qi] == host, (qi, threshold)
 
 
-def test_packed_bit_transpose_matches_unpack_oracle():
-    from kwage_tpu.ops.transpose import packed_bit_transpose, pack_filters_to_words
-
+@pytest.mark.parametrize(
+    "F,B,chunk_bits",
+    [(32, 4, 1 << 20), (64, 16, 64), (256, 128, 256), (96, 20, 48), (37, 9, 24)],
+)
+def test_packed_bit_transpose_matches_unpack_oracle(F, B, chunk_bits):
+    """The chunked device transpose of packed filter bytes equals the
+    numpy unpack -> transpose -> pack oracle, for filter counts that are
+    and are not multiples of 8 and chunks that do and do not divide B."""
     rng = np.random.default_rng(3)
-    for F, B in ((32, 4), (64, 16), (256, 128), (96, 20)):
-        filters = rng.integers(0, 256, size=(F, B), dtype=np.uint8)
-        words = pack_filters_to_words(filters)
-        got = np.asarray(packed_bit_transpose(jnp.asarray(words)))
-        want_bits = np.unpackbits(filters, axis=1, bitorder="little").T  # [L, F]
-        Lp = words.shape[1] * 32
-        if Lp > want_bits.shape[0]:
-            want_bits = np.pad(want_bits, ((0, Lp - want_bits.shape[0]), (0, 0)))
-        want = np.ascontiguousarray(
-            np.packbits(want_bits, axis=1, bitorder="little")
-        ).reshape(Lp, -1, 4).view(np.uint32).reshape(Lp, -1)
-        assert np.array_equal(got, want), (F, B)
+    filters = rng.integers(0, 256, size=(F, B), dtype=np.uint8)
+    got = transpose_chunks_device(filters, chunk_bits=chunk_bits)
+    want_bits = np.unpackbits(filters, axis=1, bitorder="little").T  # [L, F]
+    want = np.packbits(want_bits, axis=1, bitorder="little")
+    assert np.array_equal(got, want), (F, B, chunk_bits)
 
 
 def test_build_db_device_transpose_bytes_identical(tmp_path):
@@ -152,10 +150,10 @@ def test_build_db_device_transpose_bytes_identical(tmp_path):
     exact bytes of the host path."""
     import zlib
 
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.io.bloom_file import BloomFilterRecord, write_bloom_file
-    from kwage_tpu.pipeline.build_db import build_db_from_bloom_files
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.core.params import BloomParam
+    from kwage.io.bloom_file import BloomFilterRecord, write_bloom_file
+    from kwage.pipeline.build_db import build_db_from_bloom_files
 
     lrng = np.random.default_rng(9)
     param = BloomParam(kmer_len=31, log_2_filter_len=14, num_hash=3, hash_func=0)

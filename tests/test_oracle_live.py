@@ -23,9 +23,9 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.bloom_file import write_bloom_file
-    from kwage_tpu.pipeline import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.bloom_file import write_bloom_file
+    from kwage.pipeline import (
         BuildOptions,
         build_bloom_from_file,
         build_db_from_bloom_files,
@@ -76,7 +76,7 @@ def corpus(tmp_path_factory):
 @pytest.mark.parametrize("threshold", ["1", "0.75", "0.33", "0.01"])
 @pytest.mark.parametrize("fmt", ["o.json", "o.csv"])
 def test_kwage_differential(corpus, tmp_path, threshold, fmt):
-    from kwage_tpu.cli.kwage import main as kwage_main
+    from kwage.cli.kwage import main as kwage_main
 
     work, dbs, qfile = corpus
     dargs = []
@@ -99,7 +99,7 @@ def test_kwage_mixed_cmdline_and_file_queries(corpus, tmp_path):
     """Command-line sequences and -i files share one database pass but
     separate query-id spaces (kwage.cpp:116-148); output must still match
     the reference byte for byte."""
-    from kwage_tpu.cli.kwage import main as kwage_main
+    from kwage.cli.kwage import main as kwage_main
 
     work, dbs, qfile = corpus
     seqs = ["ACGTACGTACGTACGTACGTACGTACGTACGTACGTACGT", "GGGTTTAAACCCGGGTTTAAACCCGGGTTTAAACCC"]
@@ -130,7 +130,7 @@ def test_dump_tools_differential(corpus, tmp_path):
             check=True, capture_output=True, text=True,
         ).stdout
         ours = subprocess.run(
-            [sys.executable, "-m", "kwage_tpu.cli.dump_db", "-i", db],
+            [sys.executable, "-m", "kwage.cli.dump_db", "-i", db],
             check=True, capture_output=True, text=True,
         ).stdout
         assert ours == oracle
@@ -144,7 +144,7 @@ def test_bloom_diff_differential(corpus, tmp_path):
         capture_output=True, text=True,
     )
     ours = subprocess.run(
-        [sys.executable, "-m", "kwage_tpu.cli.bloom_diff", blooms[0], blooms[1]],
+        [sys.executable, "-m", "kwage.cli.bloom_diff", blooms[0], blooms[1]],
         capture_output=True, text=True,
     )
     assert ours.stdout == oracle.stdout
@@ -159,7 +159,7 @@ def test_dump_bloom_differential(corpus, tmp_path):
         check=True, capture_output=True, text=True,
     ).stdout
     ours = subprocess.run(
-        [sys.executable, "-m", "kwage_tpu.cli.dump_bloom", bloom],
+        [sys.executable, "-m", "kwage.cli.dump_bloom", bloom],
         check=True, capture_output=True, text=True,
     ).stdout
     assert ours == oracle
@@ -169,8 +169,8 @@ def test_inventory_dump_and_sra_diff_differential(tmp_path):
     """inventory_dump transcript + sra_diff accession-set diff vs oracle."""
     import numpy as np
 
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
 
     rng = np.random.default_rng(17)
 
@@ -197,7 +197,7 @@ def test_inventory_dump_and_sra_diff_differential(tmp_path):
             [os.path.join(ORACLE, tool)] + args, capture_output=True, text=True
         )
         ours = subprocess.run(
-            [sys.executable, "-m", f"kwage_tpu.cli.{tool}"] + args,
+            [sys.executable, "-m", f"kwage.cli.{tool}"] + args,
             capture_output=True, text=True,
         )
         assert ours.stdout == oracle.stdout, tool
@@ -208,11 +208,11 @@ def test_edge_kmer_lengths_differential(tmp_path, k):
     """k=15 (single-word device domain), 21 (tail-block murmur), 32 (word
     fills all 64 bits; the sort-sentinel edge): device build == host build
     bit-for-bit, and search output == the reference binary."""
-    from kwage_tpu.cli.kwage import main as kwage_main
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.bloom_file import write_bloom_file
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.pipeline import (
+    from kwage.cli.kwage import main as kwage_main
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.bloom_file import write_bloom_file
+    from kwage.io.sequence import iter_sequences
+    from kwage.pipeline import (
         BuildOptions,
         build_bloom_device,
         build_bloom_from_file,
@@ -277,7 +277,7 @@ def test_options_stage_exit_codes_match_reference(tmp_path):
     for extra in cases:
         oracle = sp.run([os.path.join(ORACLE, "kwage")] + extra,
                         capture_output=True, text=True)
-        ours = sp.run([sys.executable, "-m", "kwage_tpu.cli.kwage"] + extra,
+        ours = sp.run([sys.executable, "-m", "kwage.cli.kwage"] + extra,
                       capture_output=True, text=True)
         assert ours.returncode == oracle.returncode == 0, extra
 
@@ -305,7 +305,7 @@ def test_quirky_extension_matching_matches_reference(corpus, tmp_path):
             [os.path.join(ORACLE, "kwage"), "-d", str(d / "sra.1.db"),
              "-t", "0.5", q], capture_output=True, text=True)
         ours = sp.run(
-            [sys.executable, "-m", "kwage_tpu.cli.kwage", "-d",
+            [sys.executable, "-m", "kwage.cli.kwage", "-d",
              str(d / "sra.1.db"), "-t", "0.5", q],
             capture_output=True, text=True)
         hidden_msg = "Please provide at least one database file"

@@ -98,8 +98,8 @@ def _run_oracle(oracle_bin, k, thr, comp, min_len, min_valid, max_match,
 
 def _ours(subj_path, reads_path, k, thr, comp, min_len, min_valid,
           max_match, pure_python):
-    import kwage_tpu.sriracha.engine as eng
-    from kwage_tpu.sriracha.engine import SrirachaOptions, load_subject_kmers
+    import kwage.sriracha.engine as eng
+    from kwage.sriracha.engine import SrirachaOptions, load_subject_kmers
 
     opt = SrirachaOptions(
         kmer_len=k, kmer_match_threshold=thr, min_read_complexity=comp,

@@ -10,16 +10,16 @@ import time
 import numpy as np
 import pytest
 
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.io.inventory import write_inventory
-from kwage_tpu.parallel.maestro import (
+from kwage.core import FilterInfo, str_to_accession
+from kwage.io.inventory import write_inventory
+from kwage.parallel.maestro import (
     LocalFastaResolver,
     Maestro,
     MaestroOptions,
     STATUS_DATABASE_SUCCESS,
     STATUS_DOWNLOAD_FAIL,
 )
-from kwage_tpu.parallel.remote import (
+from kwage.parallel.remote import (
     CoordinatorServer,
     RemoteWorker,
     run_distributed_maestro,
@@ -194,12 +194,12 @@ def test_cli_coordinator_and_subprocess_worker(manifest, data_dir, tmp_path):
     env.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=2")
     env["JAX_PLATFORMS"] = "cpu"
     worker = subprocess.Popen(
-        [sys.executable, "-m", "kwage_tpu.cli.maestro", *common,
+        [sys.executable, "-m", "kwage.cli.maestro", *common,
          "--worker", f"127.0.0.1:{port}"],
         env=env, stderr=subprocess.PIPE, text=True,
     )
     try:
-        from kwage_tpu.cli.maestro import main as maestro_main
+        from kwage.cli.maestro import main as maestro_main
 
         rc = maestro_main([*common, "--workers", "1",
                            "--coordinator", f"127.0.0.1:{port}"])
@@ -209,7 +209,7 @@ def test_cli_coordinator_and_subprocess_worker(manifest, data_dir, tmp_path):
         if worker.poll() is None:
             worker.kill()
 
-    from kwage_tpu.io.status import read_status_file
+    from kwage.io.status import read_status_file
 
     status, _ = read_status_file(str(tmp_path / "status.bin"), len(accs))
     assert (status == STATUS_DATABASE_SUCCESS).all(), status
@@ -221,7 +221,7 @@ def test_blackholed_coordinator_buffered_events_converge(
     """A coordinator blackholed for a window mid-run: workers buffer their
     completion events and retry/reconnect; the job still converges with no
     stalled tasks and no double-applied events."""
-    import kwage_tpu.parallel.remote as remote_mod
+    import kwage.parallel.remote as remote_mod
 
     accs = manifest["accessions"]
     infos = [FilterInfo(run_accession=str_to_accession(a)) for a in accs]
@@ -264,7 +264,7 @@ def test_lost_reply_replay_is_deduped(manifest, data_dir, tmp_path, monkeypatch)
     """An event whose send was PROCESSED but whose reply line was lost is
     resent by the worker and dropped by the coordinator's eid dedupe:
     throughput counters apply exactly once."""
-    import kwage_tpu.parallel.remote as remote_mod
+    import kwage.parallel.remote as remote_mod
 
     accs = manifest["accessions"][:3]
     infos = [FilterInfo(run_accession=str_to_accession(a),
@@ -314,7 +314,7 @@ def test_task_timeout_requeues_abandoned_task(manifest, data_dir, tmp_path):
     import json as _json
     import socket
 
-    from kwage_tpu.parallel.remote import _send_msg
+    from kwage.parallel.remote import _send_msg
 
     accs = manifest["accessions"][:4]
     infos = [FilterInfo(run_accession=str_to_accession(a)) for a in accs]
@@ -364,7 +364,7 @@ def test_failed_apply_does_not_poison_eid(manifest, data_dir, tmp_path, monkeypa
     """An event whose APPLY raises must stay un-seen: the worker's retry
     of the same eid has to apply, not be answered as a duplicate (the
     eid is recorded only after a clean apply)."""
-    from kwage_tpu.parallel.maestro import STATUS_BLOOM_INVALID
+    from kwage.parallel.maestro import STATUS_BLOOM_INVALID
 
     accs = manifest["accessions"][:2]
     infos = [FilterInfo(run_accession=str_to_accession(a)) for a in accs]
@@ -403,7 +403,7 @@ def test_failed_apply_does_not_poison_eid(manifest, data_dir, tmp_path, monkeypa
 def test_queue_shared_secret(manifest, data_dir, tmp_path, monkeypatch):
     """KWAGE_QUEUE_SECRET: matching tokens converge normally; a missing or
     wrong token is refused with op=denied / QueueAuthError."""
-    from kwage_tpu.parallel.remote import (
+    from kwage.parallel.remote import (
         QueueAuthError,
         _send_msg,
     )
@@ -478,7 +478,7 @@ def test_empty_reply_is_retried(manifest, data_dir, tmp_path, monkeypatch):
     coordinator death mid-request) must count as UNDELIVERED: the event
     stays buffered and is resent, with the eid dedupe absorbing the case
     where it had actually been applied."""
-    import kwage_tpu.parallel.remote as remote_mod
+    import kwage.parallel.remote as remote_mod
 
     accs = manifest["accessions"][:3]
     infos = [FilterInfo(run_accession=str_to_accession(a),

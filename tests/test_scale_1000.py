@@ -5,12 +5,12 @@ and mesh-sharded search equality (config 4's collective wiring)."""
 import numpy as np
 import pytest
 
-from kwage_tpu.core import FilterInfo, str_to_accession
-from kwage_tpu.core.params import BloomParam
-from kwage_tpu.io.db_file import write_db_file, DBFileReader
-from kwage_tpu.ops.search import DeviceSearcher
-from kwage_tpu.pipeline.build_db import transpose_filters
-from kwage_tpu.search.engine import search_database
+from kwage.core import FilterInfo, str_to_accession
+from kwage.core.params import BloomParam
+from kwage.io.db_file import write_db_file, DBFileReader
+from kwage.ops.search import DeviceSearcher
+from kwage.pipeline.build_db import transpose_filters
+from kwage.search.engine import search_database
 
 N_FILTER = 1000
 LOG2_L = 12
@@ -59,8 +59,8 @@ def test_sharded_search_matches_host_at_1000(big_db):
 
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device mesh")
-    from kwage_tpu.parallel import ShardedDatabase, make_search_mesh
-    from kwage_tpu.search.engine import query_threshold_count
+    from kwage.parallel import ShardedDatabase, make_search_mesh
+    from kwage.search.engine import query_threshold_count
 
     path, filters, param = big_db
     reader = DBFileReader(path)

@@ -10,9 +10,9 @@ import pytest
 @pytest.fixture(scope="module")
 def db_dir(tmp_path_factory, data_dir, golden_dir):
     """A small maestro-built corpus to serve."""
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         LocalFastaResolver,
         Maestro,
         MaestroOptions,
@@ -45,7 +45,7 @@ def _cli_output(db_dir, queries, threshold, fmt, tmp_path):
     import io
     import sys
 
-    from kwage_tpu.cli.kwage import main as kwage_main
+    from kwage.cli.kwage import main as kwage_main
 
     out = tmp_path / "cli.out"
     args = ["-d", db_dir, "-t", str(threshold), f"--{fmt}", "-o", str(out)]
@@ -60,9 +60,9 @@ def _cli_output(db_dir, queries, threshold, fmt, tmp_path):
 
 
 def test_resident_searcher_matches_cli(db_dir, data_dir, tmp_path):
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import ResidentSearcher
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import ResidentSearcher
 
     db, man = db_dir
     queries = [s for _, s in iter_sequences(str(data_dir / "queries.fasta"))][:3]
@@ -74,9 +74,9 @@ def test_resident_searcher_matches_cli(db_dir, data_dir, tmp_path):
 
 
 def test_search_server_round_trips(db_dir, data_dir, tmp_path):
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import SearchServer
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import SearchServer
 
     db, man = db_dir
     queries = [s for _, s in iter_sequences(str(data_dir / "queries.fasta"))][:2]
@@ -110,9 +110,9 @@ def test_search_server_round_trips(db_dir, data_dir, tmp_path):
 def test_resident_budget_chunks_match(db_dir, data_dir, tmp_path):
     """A tiny HBM budget forces per-call-upload chunks; output stays
     byte-identical to the fully-resident server."""
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import ResidentSearcher
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import ResidentSearcher
 
     db, _ = db_dir
     files = find_db_files([db])
@@ -127,9 +127,9 @@ def test_resident_budget_chunks_match(db_dir, data_dir, tmp_path):
 def test_mesh_resident_searcher_matches_single(db_dir, data_dir, tmp_path):
     """MeshResidentSearcher (filters sharded over the 8-device mesh)
     renders byte-identical output to the single-device ResidentSearcher."""
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import MeshResidentSearcher, ResidentSearcher
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import MeshResidentSearcher, ResidentSearcher
 
     db, _man = db_dir
     files = find_db_files([db])
@@ -144,9 +144,9 @@ def test_mesh_resident_searcher_matches_single(db_dir, data_dir, tmp_path):
 def test_search_server_token_auth(db_dir, data_dir, tmp_path):
     """With a shared secret, requests without a matching token are refused
     and tokened requests serve normally."""
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import SearchServer
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import SearchServer
 
     db, _man = db_dir
     queries = [s for _, s in iter_sequences(str(data_dir / "queries.fasta"))][:1]
@@ -176,9 +176,9 @@ def test_search_server_token_auth(db_dir, data_dir, tmp_path):
 def test_search_server_host_engine_matches_cli(db_dir, data_dir, tmp_path):
     """--serve-engine host: CPU-only backend (mmap + native kn_search),
     bytes identical to the batch CLI for the same queries."""
-    from kwage_tpu.cli.kwage import find_db_files
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.search.resident import SearchServer
+    from kwage.cli.kwage import find_db_files
+    from kwage.io.sequence import iter_sequences
+    from kwage.search.resident import SearchServer
 
     db, man = db_dir
     queries = [s for _, s in iter_sequences(str(data_dir / "queries.fasta"))][:2]

@@ -6,16 +6,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from kwage_tpu.core.params import BloomParam
-from kwage_tpu.ops.search import (
+from kwage.core.params import BloomParam
+from kwage.ops.search import (
     db_bytes_to_words,
     make_query_batch,
     search_complete,
     search_counts,
     unpack_mask,
 )
-from kwage_tpu.parallel import ShardedDatabase, make_search_mesh
-from kwage_tpu.pipeline.build_db import transpose_filters
+from kwage.parallel import ShardedDatabase, make_search_mesh
+from kwage.pipeline.build_db import transpose_filters
 
 rng = np.random.default_rng(21)
 
@@ -62,7 +62,7 @@ def test_sharded_matches_single_device(corpus, mesh_shape):
 def test_global_mesh_and_inventory_sharding():
     import jax
 
-    from kwage_tpu.parallel import make_global_search_mesh, shard_inventory
+    from kwage.parallel import make_global_search_mesh, shard_inventory
 
     if len(jax.devices()) < 2:
         import pytest
@@ -84,9 +84,9 @@ def test_total_hits_psum_matches_counts():
 
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device mesh")
-    from kwage_tpu.core.params import BloomParam
-    from kwage_tpu.parallel import ShardedDatabase, make_search_mesh
-    from kwage_tpu.search.engine import query_threshold_count
+    from kwage.core.params import BloomParam
+    from kwage.parallel import ShardedDatabase, make_search_mesh
+    from kwage.search.engine import query_threshold_count
 
     rng = np.random.default_rng(12)
     L, F = 1 << 12, 32 * len(jax.devices())
@@ -142,13 +142,13 @@ def test_budget_shared_across_groups(tmp_path):
     full-file group whose waves used the whole budget.)"""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.db_file import write_db_file
-    from kwage_tpu.parallel.sharded_search import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.db_file import write_db_file
+    from kwage.parallel.sharded_search import (
         build_sharded_groups,
         search_sharded_groups,
     )
-    from kwage_tpu.search.engine import search_database_files
+    from kwage.search.engine import search_database_files
 
     param = BloomParam(kmer_len=31, log_2_filter_len=12, num_hash=3, hash_func=0)
     lrng = np.random.default_rng(5)
@@ -200,11 +200,11 @@ def test_resident_sharded_groups_reusable(tmp_path, data_dir, golden_dir):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.parallel.maestro import LocalFastaResolver, Maestro, MaestroOptions
-    from kwage_tpu.parallel.sharded_search import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
+    from kwage.io.sequence import iter_sequences
+    from kwage.parallel.maestro import LocalFastaResolver, Maestro, MaestroOptions
+    from kwage.parallel.sharded_search import (
         build_sharded_groups,
         search_sharded_groups,
         sharded_search_files,

@@ -5,7 +5,7 @@ import sys
 
 import pytest
 
-from kwage_tpu.cli.sriracha import main as sriracha_main
+from kwage.cli.sriracha import main as sriracha_main
 
 CASES = [
     "11_0.4_1_0.5_0_100_0_1",
@@ -95,7 +95,7 @@ def test_slices_cover_full_range(data_dir, golden_dir, tmp_path):
 
 
 def test_sra_source_status_vocabulary():
-    from kwage_tpu.sriracha import sra_source as ss
+    from kwage.sriracha import sra_source as ss
 
     # Success must be the smallest value (rank reconciliation via MAX).
     assert ss.SRA_DOWNLOAD_SUCCESS == 0
@@ -107,7 +107,7 @@ def test_sra_source_status_vocabulary():
 def test_sriracha_cli_download_failure_line(tmp_path, capsys):
     """A non-local accession without the SRA toolkit produces the
     reference's failure line and suppresses the // terminator."""
-    from kwage_tpu.cli.sriracha import main as sriracha_main
+    from kwage.cli.sriracha import main as sriracha_main
 
     q = tmp_path / "q.fasta"
     q.write_text(">q\nACGTACGTACGTACGTACGT\n")
@@ -120,8 +120,8 @@ def test_sriracha_cli_download_failure_line(tmp_path, capsys):
 
 
 def test_device_empty_subjects(tmp_path):
-    from kwage_tpu.sriracha.device import search_reads_device
-    from kwage_tpu.sriracha.engine import SrirachaOptions
+    from kwage.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import SrirachaOptions
 
     assert search_reads_device(iter([]), [], SrirachaOptions()) == []
     assert (
@@ -137,7 +137,7 @@ def test_device_many_subject_groups():
     import numpy as np
     import jax.numpy as jnp
 
-    from kwage_tpu.sriracha.device import (
+    from kwage.sriracha.device import (
         _build_hash_group,
         _read_batch_kernel_hash,
         _read_batch_kernel_tables,
@@ -197,10 +197,10 @@ def test_device_search_spans_stream_bounded(data_dir, monkeypatch):
     results stay bit-identical to the host engine across span boundaries
     (perfect-match/cull state carries over), and the first device batch
     runs BEFORE the iterator is exhausted (no full materialization)."""
-    import kwage_tpu.sriracha.device as dev_mod
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.sriracha.device import search_reads_device
-    from kwage_tpu.sriracha.engine import (
+    import kwage.sriracha.device as dev_mod
+    from kwage.io.sequence import iter_sequences
+    from kwage.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import (
         SrirachaOptions,
         load_subject_kmers,
         search_reads,
@@ -249,8 +249,8 @@ def test_native_read_profile_and_intersect_match_numpy():
 
     import numpy as np
 
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.native import read_profile_native, sorted_intersect_count_native
+    from kwage.core.words import canonical_kmers
+    from kwage.native import read_profile_native, sorted_intersect_count_native
 
     if read_profile_native("ACGT", 2) is None:
         return  # toolchain absent: numpy path is the only path
@@ -284,9 +284,9 @@ def test_native_read_search_loop_differential():
 
     import numpy as np
 
-    import kwage_tpu.sriracha.engine as eng
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.sriracha.engine import SrirachaOptions, search_reads
+    import kwage.sriracha.engine as eng
+    from kwage.core.words import canonical_kmers
+    from kwage.sriracha.engine import SrirachaOptions, search_reads
 
     random.seed(17)
 
@@ -355,9 +355,9 @@ def test_device_gate_semantics_differential():
 
     import numpy as np
 
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.sriracha.device import search_reads_device
-    from kwage_tpu.sriracha.engine import SrirachaOptions, search_reads
+    from kwage.core.words import canonical_kmers
+    from kwage.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import SrirachaOptions, search_reads
 
     random.seed(23)
 
@@ -406,9 +406,9 @@ def test_device_lut_and_hash_routes_agree(monkeypatch):
 
     import numpy as np
 
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.sriracha.device import search_reads_device
-    from kwage_tpu.sriracha.engine import SrirachaOptions, search_reads
+    from kwage.core.words import canonical_kmers
+    from kwage.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import SrirachaOptions, search_reads
 
     random.seed(31)
     k = 11
@@ -449,10 +449,10 @@ def test_native_file_scan_stops_at_range_end(tmp_path):
     for the whole file -- in both engines."""
     import numpy as np
 
-    import kwage_tpu.sriracha.engine as eng
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.native import available
-    from kwage_tpu.sriracha.engine import SrirachaOptions, StreamStats
+    import kwage.sriracha.engine as eng
+    from kwage.core.words import canonical_kmers
+    from kwage.native import available
+    from kwage.sriracha.engine import SrirachaOptions, StreamStats
 
     if not available():
         pytest.skip("native library unavailable")
@@ -485,10 +485,10 @@ def test_native_scan_callback_exception_propagates(tmp_path):
     decode fail, and the scan must raise like the text-mode twin does."""
     import numpy as np
 
-    import kwage_tpu.sriracha.engine as eng
-    from kwage_tpu.core.words import canonical_kmers
-    from kwage_tpu.native import available
-    from kwage_tpu.sriracha.engine import SrirachaOptions
+    import kwage.sriracha.engine as eng
+    from kwage.core.words import canonical_kmers
+    from kwage.native import available
+    from kwage.sriracha.engine import SrirachaOptions
 
     if not available():
         pytest.skip("native library unavailable")
@@ -512,7 +512,7 @@ def test_merge_slices_reproduces_single_process(data_dir, tmp_path,
     --max-results + the all-slices-agree // terminator
     (SriRachA/main.cpp:462-578). A failed accession (any slice) collapses
     to one NA line and suppresses the terminator everywhere."""
-    from kwage_tpu.cli.sriracha import main
+    from kwage.cli.sriracha import main
 
     args = ["-k", "11", "-t", "0.4", "--max-results", "3",
             "-i", str(data_dir / "sriracha_queries.fasta")]
@@ -546,7 +546,7 @@ def test_merge_slices_reproduces_single_process(data_dir, tmp_path,
 def test_merge_slices_rejects_unknown_rows(data_dir, tmp_path):
     """Slice rows for accessions missing from the merge arguments are an
     error, not silent drops."""
-    from kwage_tpu.cli.sriracha import main
+    from kwage.cli.sriracha import main
 
     p = tmp_path / "s0.tsv"
     p.write_text("GHOST\t1\t0.5\tACGT\tq1\n//\n")
@@ -560,7 +560,7 @@ def test_merge_slices_rejects_duplicate_slice_inputs(data_dir, tmp_path):
     """Feeding the same slice TSV twice (or slices from inconsistent
     --of values) is a hard error, not silent double-counted matches:
     disjoint shards never share a (read, query) pair."""
-    from kwage_tpu.cli.sriracha import main
+    from kwage.cli.sriracha import main
 
     args = ["-k", "11", "-t", "0.4",
             "-i", str(data_dir / "sriracha_queries.fasta")]
@@ -580,7 +580,7 @@ def test_merge_slices_accepts_repeated_accession_arg(data_dir, tmp_path):
     dedupes accession args the same way) rather than erroring. Cross-file
     repeats (same slice fed twice) must still be rejected -- covered by
     test_merge_slices_rejects_duplicate_slice_inputs."""
-    from kwage_tpu.cli.sriracha import main
+    from kwage.cli.sriracha import main
 
     args = ["-k", "11", "-t", "0.4",
             "-i", str(data_dir / "sriracha_queries.fasta")]
@@ -620,9 +620,9 @@ def test_device_span_pipeline_overlap_order(data_dir):
     links, uploads overlap device compute). Also checks the profile
     accumulators are filled and the results stay bit-identical to the
     unprofiled run."""
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.sriracha.device import search_reads_device
-    from kwage_tpu.sriracha.engine import SrirachaOptions, load_subject_kmers
+    from kwage.io.sequence import iter_sequences
+    from kwage.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import SrirachaOptions, load_subject_kmers
 
     reads = [s for _, s in
              iter_sequences(str(data_dir / "sriracha_reads.fasta"))]
@@ -653,3 +653,16 @@ def test_device_span_pipeline_overlap_order(data_dir):
         assert ev.index(("dispatch", i)) < ev.index(("sync", i - 1)), ev
     assert prof["bp"] == sum(len(s) for s in reads)
     assert prof["pack_dispatch_s"] > 0 and prof["sync_s"] > 0
+
+
+@pytest.mark.parametrize("budget,tables,want", [
+    (64 << 30, 1, 14), (4 << 30, 1, 14), (1 << 30, 1, 13), (1 << 30, 2, 13),
+    (1 << 30, 3, 12), (1 << 20, 1, 8),
+])
+def test_dense_table_k_limit_follows_device_budget(monkeypatch, budget, tables, want):
+    """The dense LUT's k ceiling comes from the device budget (half of it
+    for the tables), not from the platform's name."""
+    from kwage.sriracha.device import _table_k_limit
+
+    monkeypatch.setenv("KWAGE_FUSION_BUDGET_BYTES", str(budget))
+    assert _table_k_limit(tables) == want

@@ -92,7 +92,7 @@ def _rand_seqs(n, length, seed=0):
 
 
 def test_stream_accession_yields_indexed_reads(fake_toolkit):
-    from kwage_tpu.sriracha.sra_source import stream_accession
+    from kwage.sriracha.sra_source import stream_accession
 
     seqs = _rand_seqs(5, 80)
     _write_fastq(fake_toolkit, "SRR5550001", seqs)
@@ -104,7 +104,7 @@ def test_stream_accession_paired_end_fragments(fake_toolkit):
     """Paired-end spots stream as separate fragments with the reference's
     (1-based spot, 1-based subindex) numbering
     (SriRachA/sra_stream.cpp:358-377)."""
-    from kwage_tpu.sriracha.sra_source import stream_accession
+    from kwage.sriracha.sra_source import stream_accession
 
     seqs = _rand_seqs(6, 70, seed=7)
     spots = [[seqs[0], seqs[1]], [seqs[2]], [seqs[3], seqs[4], seqs[5]]]
@@ -121,7 +121,7 @@ def test_stream_accession_paired_end_fragments(fake_toolkit):
 def test_stream_chatty_stderr_does_not_deadlock(fake_toolkit):
     """A toolkit emitting >64 KiB of stderr chatter mid-stream must not
     deadlock the read loop (stderr drains in a background thread)."""
-    from kwage_tpu.sriracha.sra_source import stream_accession
+    from kwage.sriracha.sra_source import stream_accession
 
     seqs = _rand_seqs(16, 60, seed=9)
     _write_fastq(fake_toolkit, "SRR5550041", seqs)
@@ -133,7 +133,7 @@ def test_stream_chatty_stderr_does_not_deadlock(fake_toolkit):
 def test_stream_failure_classified_network(fake_toolkit):
     """A mid-stream failure surfaces as a network-classed DownloadError
     after the partial reads, engaging the caller's retry loop."""
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         DownloadError,
         SRA_DOWNLOAD_NETWORK_FAILURE,
         is_retryable,
@@ -153,7 +153,7 @@ def test_stream_failure_classified_network(fake_toolkit):
 
 
 def test_stream_unknown_accession_not_retryable(fake_toolkit):
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         DownloadError,
         SRA_DOWNLOAD_VDB_ERROR,
         stream_accession,
@@ -167,15 +167,15 @@ def test_stream_unknown_accession_not_retryable(fake_toolkit):
 def test_maestro_stream_mode_zero_scratch(fake_toolkit, tmp_path):
     """--stream maestro: blooms stream straight off the pipe, byte-identical
     to a local-file build, with the download scratch left empty."""
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         Maestro,
         MaestroOptions,
         STATUS_DATABASE_SUCCESS,
         StreamingResolver,
     )
-    from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
+    from kwage.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
 
     accs = ["SRR5550010", "SRR5550011"]
     all_seqs = {}
@@ -214,7 +214,7 @@ def test_maestro_stream_mode_zero_scratch(fake_toolkit, tmp_path):
     for j, acc in enumerate(accs):
         want = build_bloom_from_sequences(iter(all_seqs[acc]), bopts, infos[j])
         got = open(tmp_path / "bloom" / f"{acc}.bloom", "rb").read()
-        from kwage_tpu.io.bloom_file import read_bloom_file
+        from kwage.io.bloom_file import read_bloom_file
 
         rec = read_bloom_file(str(tmp_path / "bloom" / f"{acc}.bloom"))
         assert rec.param == want.param
@@ -225,9 +225,9 @@ def test_maestro_stream_mode_zero_scratch(fake_toolkit, tmp_path):
 def test_maestro_stream_failure_is_bloom_classed(fake_toolkit, tmp_path):
     """Streaming-mode failures persist BLOOM_FAIL codes (the reference
     streaming worker replies STATUS_BLOOM_FAIL even for download errors)."""
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         Maestro,
         MaestroOptions,
         STATUS_BLOOM_FAIL,
@@ -260,16 +260,16 @@ def test_maestro_stream_paired_end_fragment_parity(fake_toolkit, tmp_path):
     byte-identical to the materialized PER-FRAGMENT build: mates digest as
     separate reads, so no chimeric k-mer spanning a mate junction exists
     (the reference's READ_LEN split, SriRachA/sra_stream.cpp:358-377)."""
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.bloom_file import read_bloom_file
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.bloom_file import read_bloom_file
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         Maestro,
         MaestroOptions,
         STATUS_DATABASE_SUCCESS,
         StreamingResolver,
     )
-    from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
+    from kwage.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
 
     acc = "SRR5550042"
     frags = _rand_seqs(10, 90, seed=21)
@@ -317,9 +317,9 @@ def test_sriracha_stream_paired_end_tsv_subindices(fake_toolkit, data_dir, tmp_p
     """Streamed sriracha on a paired-end accession emits idx.sub rows
     matching the per-fragment ground truth (TSV format
     SriRachA/main.cpp:560-578)."""
-    from kwage_tpu.cli.sriracha import main as sriracha_main
-    from kwage_tpu.io.sequence import iter_sequences
-    from kwage_tpu.sriracha.engine import (
+    from kwage.cli.sriracha import main as sriracha_main
+    from kwage.io.sequence import iter_sequences
+    from kwage.sriracha.engine import (
         SrirachaOptions,
         format_results,
         load_subject_kmers,
@@ -361,17 +361,17 @@ def test_bloom_batch_streams_big_accessions_unbuffered(tmp_path, monkeypatch):
     the live pipe BEFORE the stream is exhausted, and the result is
     byte-identical to the host build (bounded-RAM streaming, the
     reference's sra_stream.cpp:90-211 shape)."""
-    import kwage_tpu.parallel.maestro as maestro_mod
-    import kwage_tpu.pipeline.make_bloom as mb_mod
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.bloom_file import read_bloom_file
-    from kwage_tpu.parallel.maestro import (
+    import kwage.parallel.maestro as maestro_mod
+    import kwage.pipeline.make_bloom as mb_mod
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.bloom_file import read_bloom_file
+    from kwage.parallel.maestro import (
         MaestroOptions,
         STATUS_BLOOM_SUCCESS,
         SourceResolver,
         execute_bloom_batch,
     )
-    from kwage_tpu.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
+    from kwage.pipeline.make_bloom import BuildOptions, build_bloom_from_sequences
 
     seqs = _rand_seqs(40, 150, seed=33)  # 6000 bp total
 
@@ -431,8 +431,8 @@ def test_bloom_batch_streams_big_accessions_unbuffered(tmp_path, monkeypatch):
 def test_sriracha_cli_streams_remote_accession(fake_toolkit, data_dir, tmp_path):
     """A non-local accession streams through the pipe and produces the
     same TSV as searching the equivalent local file."""
-    from kwage_tpu.cli.sriracha import main as sriracha_main
-    from kwage_tpu.io.sequence import iter_sequences
+    from kwage.cli.sriracha import main as sriracha_main
+    from kwage.io.sequence import iter_sequences
 
     reads = [s for _, s in iter_sequences(str(data_dir / "sriracha_reads.fasta"))]
     _write_fastq(fake_toolkit, "SRR5550030", reads)
@@ -463,8 +463,8 @@ def test_sliced_materialize_fallback_matches_streamed_numbering(
     must match the streamed pipe path exactly (same (spot, subindex)
     synthesis from the --split-spot headers), so results never depend on
     which access path served the accession."""
-    from kwage_tpu.cli.sriracha import main as sriracha_main
-    from kwage_tpu.io.sequence import iter_sequences
+    from kwage.cli.sriracha import main as sriracha_main
+    from kwage.io.sequence import iter_sequences
 
     reads = [s for _, s in iter_sequences(str(data_dir / "sriracha_reads.fasta"))]
     spots = [reads[i : i + 2] for i in range(0, len(reads) - len(reads) % 2, 2)]

@@ -28,7 +28,7 @@ def mock_vdb_lib(tmp_path_factory):
 
 @pytest.fixture
 def vdb_env(mock_vdb_lib, tmp_path, monkeypatch):
-    import kwage_tpu.sriracha.vdb as vdb_mod
+    import kwage.sriracha.vdb as vdb_mod
 
     monkeypatch.setenv("KWAGE_VDB_LIB", str(mock_vdb_lib))
     monkeypatch.setenv("FAKE_VDB_DIR", str(tmp_path))
@@ -47,7 +47,7 @@ def _write_spots(d, acc, spots, flat=False):
 
 
 def test_available_gating(tmp_path, monkeypatch):
-    import kwage_tpu.sriracha.vdb as vdb_mod
+    import kwage.sriracha.vdb as vdb_mod
 
     monkeypatch.setenv("KWAGE_VDB_LIB", str(tmp_path / "nope.so"))
     monkeypatch.setattr(vdb_mod, "_LIB", None)
@@ -56,7 +56,7 @@ def test_available_gating(tmp_path, monkeypatch):
 
 
 def test_database_path_per_fragment_stream(vdb_env):
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     spots = [["ACGTACGT", "TTGGCCAA"], ["GGGGCCCC"], ["AAAA", "CCCC", "GGGG"]]
     _write_spots(vdb_env, "SRRV000001", spots)
@@ -72,7 +72,7 @@ def test_database_path_per_fragment_stream(vdb_env):
 def test_flat_table_path_subindex_zero(vdb_env):
     """Flat tables stream the READ column only with subindex 0 (no .sub
     suffix in TSV), per stream_flat_seq (sra_stream.cpp:415-523)."""
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     _write_spots(vdb_env, "SRRV000002", [["ACACACAC"], ["GTGTGTGT"]], flat=True)
     got = list(stream_accession_vdb("SRRV000002"))
@@ -80,8 +80,8 @@ def test_flat_table_path_subindex_zero(vdb_env):
 
 
 def test_rank_slicing_matches_assign_read_range(vdb_env):
-    from kwage_tpu.sriracha.engine import assign_read_range
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.engine import assign_read_range
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     spots = [[f"ACGT{'A' * i}"] for i in range(10)]
     _write_spots(vdb_env, "SRRV000003", spots)
@@ -95,11 +95,11 @@ def test_rank_slicing_matches_assign_read_range(vdb_env):
 
 
 def test_controlled_access_classification(vdb_env):
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         SRA_DOWNLOAD_CONTROLLED_ACCESS,
         DownloadError,
     )
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     _write_spots(vdb_env, "SRRV000004", [["ACGT"]])
     (vdb_env / "SRRV000004.controlled").touch()
@@ -111,11 +111,11 @@ def test_controlled_access_classification(vdb_env):
 def test_missing_accession_is_controlled_access(vdb_env):
     """kptNotFound after the retry loop falls into the default branch
     (sra_stream.cpp:200-204), like the reference."""
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         SRA_DOWNLOAD_CONTROLLED_ACCESS,
         DownloadError,
     )
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     with pytest.raises(DownloadError) as ei:
         list(stream_accession_vdb("SRRV999999"))
@@ -125,7 +125,7 @@ def test_missing_accession_is_controlled_access(vdb_env):
 def test_path_type_notfound_retries(vdb_env):
     """A spuriously-kptNotFound first PathType call is retried
     (sra_stream.cpp:113-130)."""
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     _write_spots(vdb_env, "SRRV000005", [["ACGTACGT"]])
     (vdb_env / "SRRV000005.flaky").touch()
@@ -135,7 +135,7 @@ def test_path_type_notfound_retries(vdb_env):
 def test_cell_data_transient_failure_retries(vdb_env):
     """VCursorCellDataDirect failures retry MAX_RETRY times per call
     (sra_stream.cpp:281-308) before classifying."""
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     spots = [["ACGTAC", "GGTTCC"], ["TTTTAA"]]
     _write_spots(vdb_env, "SRRV000006", spots)
@@ -147,7 +147,7 @@ def test_cell_data_transient_failure_retries(vdb_env):
 def test_stream_accession_prefers_vdb(vdb_env, monkeypatch):
     """sra_source.stream_accession routes through the VDB cursors when the
     library is present -- no toolkit subprocess at all."""
-    import kwage_tpu.sriracha.sra_source as src
+    import kwage.sriracha.sra_source as src
 
     _write_spots(vdb_env, "SRRV000007", [["ACGTACGTAC", "TGCATGCATG"]])
     monkeypatch.setattr(
@@ -166,8 +166,8 @@ def test_cli_sliced_streaming_via_vdb(vdb_env, data_dir, tmp_path, monkeypatch):
     """--slice/--of on a remote accession streams through the VDB cursors
     (VCursorIdRange row range, sra_stream.cpp:336-356) -- no toolkit
     materialization; the union of slices equals the full-range TSV."""
-    import kwage_tpu.sriracha.sra_source as src
-    from kwage_tpu.cli.sriracha import main as sriracha_main
+    import kwage.sriracha.sra_source as src
+    from kwage.cli.sriracha import main as sriracha_main
 
     spots = []
     with open(data_dir / "sriracha_reads.fasta") as f:
@@ -214,7 +214,7 @@ def test_cli_sliced_no_vdb_env_materializes(vdb_env, data_dir, tmp_path,
     import os
     import stat
 
-    from kwage_tpu.cli.sriracha import main as sriracha_main
+    from kwage.cli.sriracha import main as sriracha_main
 
     monkeypatch.setenv("KWAGE_NO_VDB", "1")
 
@@ -287,7 +287,7 @@ def test_aligned_run_streams_alignments_first(vdb_env):
     aligned bases of getAlignedFragmentBases), then the fragments of
     fully-UNALIGNED spots only; the unaligned mate of a partially aligned
     spot is deliberately missed (make_bloom.cpp:174-258)."""
-    from kwage_tpu.sriracha.vdb import (
+    from kwage.sriracha.vdb import (
         BloomStreamProgress,
         stream_accession_bloom_vdb,
     )
@@ -310,7 +310,7 @@ def test_aligned_run_force_unaligned_streams_all_spots(vdb_env):
     """force_unaligned (the aligned-colorspace fallback,
     worker_main.cpp:301-310) streams EVERY spot per fragment in spot
     order, ignoring PRIMARY_ALIGNMENT."""
-    from kwage_tpu.sriracha.vdb import stream_accession_bloom_vdb
+    from kwage.sriracha.vdb import stream_accession_bloom_vdb
 
     _write_aligned(vdb_env, "SRRA000002", ALIGNED_SPOTS, ALIGNED_PALIDS,
                    ALIGNED_READS)
@@ -321,7 +321,7 @@ def test_aligned_run_force_unaligned_streams_all_spots(vdb_env):
 def test_aligned_run_empty_alignment_table_uses_spot_order(vdb_env):
     """getAlignmentCount == 0 takes the unaligned branch even when the
     PRIMARY_ALIGNMENT table exists (make_bloom.cpp:188,260-300)."""
-    from kwage_tpu.sriracha.vdb import (
+    from kwage.sriracha.vdb import (
         BloomStreamProgress,
         stream_accession_bloom_vdb,
     )
@@ -338,7 +338,7 @@ def test_aligned_run_empty_alignment_table_uses_spot_order(vdb_env):
 def test_unaligned_run_bloom_stream_is_spot_order(vdb_env):
     """Runs without a PRIMARY_ALIGNMENT table stream all spots per
     fragment, identical to the search stream's sequence order."""
-    from kwage_tpu.sriracha.vdb import (
+    from kwage.sriracha.vdb import (
         stream_accession_bloom_vdb,
         stream_accession_vdb,
     )
@@ -355,8 +355,8 @@ def test_bloom_order_sensitivity_is_load_bearing():
     (make_bloom.cpp:181-258) is required for bit parity -- not cosmetic."""
     import numpy as np
 
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.pipeline.make_bloom import (
+    from kwage.core.info import FilterInfo
+    from kwage.pipeline.make_bloom import (
         BuildOptions,
         build_bloom_from_sequences,
     )
@@ -372,7 +372,7 @@ def test_bloom_order_sensitivity_is_load_bearing():
 
 
 def _stream_opts(tmp_path, **kw):
-    from kwage_tpu.parallel.maestro import MaestroOptions
+    from kwage.parallel.maestro import MaestroOptions
 
     kw.setdefault("stream_sra", True)
     return MaestroOptions(
@@ -386,15 +386,15 @@ def test_worker_colorspace_fallback_retries_force_unaligned(vdb_env, tmp_path):
     """The ncbi-vdb#31 signature -- all primary alignments read, unaligned
     reads exist, none read -- retries the whole build force-unaligned
     (worker_main.cpp:301-310); the result equals a clean forced build."""
-    from kwage_tpu.io.bloom_file import read_bloom_file, write_bloom_file
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.parallel.maestro import (
+    from kwage.io.bloom_file import read_bloom_file, write_bloom_file
+    from kwage.core.info import FilterInfo
+    from kwage.parallel.maestro import (
         STATUS_BLOOM_SUCCESS,
         StreamingResolver,
         execute_bloom_task,
     )
-    from kwage_tpu.pipeline.make_bloom import build_bloom_from_sequences
-    from kwage_tpu.sriracha.vdb import stream_accession_bloom_vdb
+    from kwage.pipeline.make_bloom import build_bloom_from_sequences
+    from kwage.sriracha.vdb import stream_accession_bloom_vdb
 
     acc = "SRRA000005"
     _write_aligned(vdb_env, acc, ALIGNED_SPOTS, ALIGNED_PALIDS, ALIGNED_READS)
@@ -420,14 +420,14 @@ def test_worker_colorspace_fallback_retries_force_unaligned(vdb_env, tmp_path):
 def test_worker_aligned_stream_builds_aligned_order(vdb_env, tmp_path):
     """A healthy aligned run builds from the alignments-first stream --
     byte-equal to building from that exact sequence list."""
-    from kwage_tpu.io.bloom_file import read_bloom_file
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.parallel.maestro import (
+    from kwage.io.bloom_file import read_bloom_file
+    from kwage.core.info import FilterInfo
+    from kwage.parallel.maestro import (
         STATUS_BLOOM_SUCCESS,
         StreamingResolver,
         execute_bloom_task,
     )
-    from kwage_tpu.pipeline.make_bloom import build_bloom_from_sequences
+    from kwage.pipeline.make_bloom import build_bloom_from_sequences
 
     acc = "SRRA000006"
     _write_aligned(vdb_env, acc, ALIGNED_SPOTS, ALIGNED_PALIDS, ALIGNED_READS)
@@ -450,14 +450,14 @@ def test_staged_sra_path_streams_vdb_bloom_order(vdb_env, tmp_path):
     aligned-first order in prefetch (non-streaming) mode."""
     import os
 
-    from kwage_tpu.io.bloom_file import read_bloom_file
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.parallel.maestro import (
+    from kwage.io.bloom_file import read_bloom_file
+    from kwage.core.info import FilterInfo
+    from kwage.parallel.maestro import (
         STATUS_BLOOM_SUCCESS,
         SourceResolver,
         execute_bloom_task,
     )
-    from kwage_tpu.pipeline.make_bloom import build_bloom_from_sequences
+    from kwage.pipeline.make_bloom import build_bloom_from_sequences
 
     acc = "SRRA000007"
     sra_path = tmp_path / "staged" / f"{acc}.sra"
@@ -496,15 +496,15 @@ def test_batch_colorspace_fallback(vdb_env, tmp_path, monkeypatch, buffer_bp):
     buffering a small accession (prepare) and mid-stream on a big one
     routed to the chunked builder (finish, KWAGE_STREAM_BUFFER_BP
     shrunk)."""
-    from kwage_tpu.io.bloom_file import read_bloom_file
-    from kwage_tpu.core.info import FilterInfo
-    from kwage_tpu.parallel.maestro import (
+    from kwage.io.bloom_file import read_bloom_file
+    from kwage.core.info import FilterInfo
+    from kwage.parallel.maestro import (
         STATUS_BLOOM_SUCCESS,
         StreamingResolver,
         execute_bloom_batch,
     )
-    from kwage_tpu.pipeline.make_bloom import build_bloom_device
-    from kwage_tpu.sriracha.vdb import stream_accession_bloom_vdb
+    from kwage.pipeline.make_bloom import build_bloom_device
+    from kwage.sriracha.vdb import stream_accession_bloom_vdb
 
     if buffer_bp is not None:
         monkeypatch.setenv("KWAGE_STREAM_BUFFER_BP", buffer_bp)
@@ -537,7 +537,7 @@ def test_vdb_metadata_database_fallback(vdb_env):
     """A database accession is not a flat table: OpenTableRead fails and
     the read falls back to OpenDBRead + SEQUENCE (sra_meta.cpp:42-55),
     then KTable -> KMetadata -> STATS/TABLE -> BASE_COUNT."""
-    from kwage_tpu.sriracha.vdb import meta_available, vdb_number_of_bases
+    from kwage.sriracha.vdb import meta_available, vdb_number_of_bases
 
     _write_spots(vdb_env, "SRRM000001", [["ACGTACGT"]])
     (vdb_env / "SRRM000001.meta").write_text(
@@ -549,7 +549,7 @@ def test_vdb_metadata_database_fallback(vdb_env):
 def test_vdb_metadata_flat_table_direct(vdb_env):
     """Flat-table accessions open directly; SPOT_COUNT absent reads 0
     (the reference only consumes BASE_COUNT)."""
-    from kwage_tpu.sriracha.vdb import vdb_number_of_bases
+    from kwage.sriracha.vdb import vdb_number_of_bases
 
     _write_spots(vdb_env, "SRRM000002", [["ACGT"]], flat=True)
     (vdb_env / "SRRM000002.meta").write_text("BASE_COUNT=999\n")
@@ -557,8 +557,8 @@ def test_vdb_metadata_flat_table_direct(vdb_env):
 
 
 def test_vdb_metadata_missing_node_raises(vdb_env):
-    from kwage_tpu.sriracha.sra_source import DownloadError
-    from kwage_tpu.sriracha.vdb import vdb_number_of_bases
+    from kwage.sriracha.sra_source import DownloadError
+    from kwage.sriracha.vdb import vdb_number_of_bases
 
     _write_spots(vdb_env, "SRRM000003", [["ACGT"]])
     with pytest.raises(DownloadError):
@@ -569,7 +569,7 @@ def test_sra_meta_prefers_library(vdb_env, monkeypatch):
     """pipeline.sra_meta.sra_number_of_bases uses the KMetadata read when
     libncbi-vdb is present -- no sra-stat subprocess; KWAGE_NO_VDB=1
     routes to the toolkit probe (RuntimeError when absent)."""
-    import kwage_tpu.pipeline.sra_meta as sm
+    import kwage.pipeline.sra_meta as sm
 
     _write_spots(vdb_env, "SRRM000004", [["ACGT"]])
     (vdb_env / "SRRM000004.meta").write_text(
@@ -624,7 +624,7 @@ def _reload_vdb(monkeypatch, lib_path, data_dir, **env):
     KPT pins are re-evaluated exactly as a real process start would."""
     import importlib
 
-    import kwage_tpu.sriracha.vdb as vdb_mod
+    import kwage.sriracha.vdb as vdb_mod
 
     monkeypatch.setenv("KWAGE_VDB_LIB", str(lib_path))
     monkeypatch.setenv("FAKE_VDB_DIR", str(data_dir))
@@ -642,7 +642,7 @@ def _restore_vdb_module():
     yield
     import importlib
 
-    import kwage_tpu.sriracha.vdb as vdb_mod
+    import kwage.sriracha.vdb as vdb_mod
 
     importlib.reload(vdb_mod)
 
@@ -652,7 +652,7 @@ def test_old_abi_unpinned_misclassifies(old_abi_lib, tmp_path, monkeypatch,
     """Against the old-numbering library WITHOUT the KWAGE_VDB_KPT_* pins
     the database path type (2) is unknown -> the controlled-access
     classification, exactly the failure the pins exist to fix."""
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         DownloadError,
         SRA_DOWNLOAD_CONTROLLED_ACCESS,
     )
@@ -695,8 +695,8 @@ def test_old_abi_no_kmetadata_fallback(old_abi_lib, tmp_path, monkeypatch,
     """A pre-KMetadata library keeps cursor streaming but meta_available()
     is False, vdb_number_of_bases raises (lazy-bind fallback path,
     sriracha/vdb.py), and pipeline.sra_meta routes to the toolkit probe."""
-    import kwage_tpu.pipeline.sra_meta as sm
-    from kwage_tpu.sriracha.sra_source import DownloadError
+    import kwage.pipeline.sra_meta as sm
+    from kwage.sriracha.sra_source import DownloadError
 
     vdb_mod = _reload_vdb(monkeypatch, old_abi_lib, tmp_path,
                           KWAGE_VDB_KPT_DATABASE="2",
@@ -725,11 +725,11 @@ def test_symbol_subset_library_unavailable(subset_lib, tmp_path, monkeypatch,
 def test_read2na_elem_bits_clean_error(vdb_env):
     """A READ column served with elem_bits=2 (packed 2na) is classified
     as READ_FORMAT_ERROR -- the binding must never decode it as ASCII."""
-    from kwage_tpu.sriracha.sra_source import (
+    from kwage.sriracha.sra_source import (
         DownloadError,
         SRA_DOWNLOAD_READ_FORMAT_ERROR,
     )
-    from kwage_tpu.sriracha.vdb import stream_accession_vdb
+    from kwage.sriracha.vdb import stream_accession_vdb
 
     _write_spots(vdb_env, "SRRO000005", [["ACGTACGT"]])
     (vdb_env / "SRRO000005.read2na").touch()

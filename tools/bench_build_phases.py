@@ -22,8 +22,8 @@ REPS = int(os.environ.get("PH_REPS", "5"))
 
 
 def main() -> None:
-    from kwage_tpu.core import FilterInfo
-    from kwage_tpu.pipeline.make_bloom import (
+    from kwage.core import FilterInfo
+    from kwage.pipeline.make_bloom import (
         BuildOptions,
         dispatch_device_batch,
         finish_device_batch,

@@ -19,14 +19,10 @@ Env: INGEST_ACCS (8), INGEST_READS (8192 per acc batch), INGEST_LEN
 (384), INGEST_COV (4), INGEST_MINCOUNT (2), INGEST_HASH (5),
 INGEST_LOG2L (20).
 
-Measured (v5e, 25 Mbp batch): 21.2 Mbp/s. Speed-of-light context: the
-pipeline's irreducible element-granularity ops are the (acc, word) sort
-(~253 M elem/s for the 4-operand sort), the compaction gathers and the
-final scatter (~6 ns per random-access element either way), so this
-workload's floor is a few hundred ms/batch no matter how stages are
-fused — order 40-60 Mbp/s, not hundreds. The production build path
-amortizes everything behind batching and host pipelining and is
-host-parse/dispatch-bound, not kernel-bound (bench_build.py).
+The pipeline's irreducible element-granularity ops are the (acc, word)
+sort, the compaction gathers and the final scatter; the production build
+path amortizes everything behind batching and host pipelining
+(bench_build.py). Device rate on the H100: not measured.
 """
 
 from __future__ import annotations
@@ -49,13 +45,14 @@ K = 31
 
 def main() -> None:
     import jax
-
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
     import jax.numpy as jnp
 
-    from kwage_tpu.ops.counting import (
+    from kwage.utils.runtime import enable_compile_cache, require_accelerator
+
+    require_accelerator("bench_ingest.py")
+    enable_compile_cache()
+
+    from kwage.ops.counting import (
         count_kmers_device_multi,
         set_filter_bits_multi,
     )

@@ -12,7 +12,7 @@ batches (mixed 100-400 bp lengths) at BOTH thresholds:
   - rendered output byte-identical to the host engine on the same batch
     (the serving parity contract).
 
-Writes RESIDENT_r{KWAGE_ROUND}.json. Env: SCALE_N_ACC (default 4350),
+Writes results/RESIDENT.json. Env: SCALE_N_ACC (default 4350),
 RESIDENT_NQ (default 512), SCALE_GENOME (default 28000).
 """
 
@@ -32,6 +32,7 @@ os.environ["PYTHONPATH"] = _REPO_ROOT + (
     if os.environ.get("PYTHONPATH") else "")
 
 import numpy as np
+from results import write_results  # noqa: E402
 
 N_ACC = int(os.environ.get("SCALE_N_ACC", "4350"))
 NQ = int(os.environ.get("RESIDENT_NQ", "512"))
@@ -47,12 +48,13 @@ def log(phase, **kw):
 
 
 def main() -> int:
-    from kwage_tpu.utils.runtime import pin_platform_from_env
+    from kwage.utils.runtime import enable_compile_cache, require_accelerator
 
-    pin_platform_from_env()
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    require_accelerator("bench_resident.py")
+    enable_compile_cache()
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         STATUS_DATABASE_SUCCESS,
         LocalFastaResolver,
         Maestro,
@@ -60,7 +62,7 @@ def main() -> int:
     )
 
     results = []
-    work = tempfile.mkdtemp(prefix="kwage_resident.", dir="/tmp")
+    work = tempfile.mkdtemp(prefix="kwage_resident.")
     try:
         t0 = time.perf_counter()
         rng = np.random.default_rng(3)
@@ -120,8 +122,8 @@ def main() -> int:
                 st = int(rng.integers(0, len(g) - ln))
                 queries.append(g[st:st + ln].tobytes().decode())
 
-        from kwage_tpu.cli.kwage import find_db_files
-        from kwage_tpu.search.resident import (
+        from kwage.cli.kwage import find_db_files
+        from kwage.search.resident import (
             HostResidentSearcher,
             ResidentSearcher,
         )
@@ -156,10 +158,7 @@ def main() -> int:
         ok = all(row[n]["byte_identical_to_host"]
                  for n in ("complete", "counting"))
         results.append(log("done", ok=ok))
-        rnd = os.environ.get("KWAGE_ROUND", "05")
-        with open(os.path.join(_REPO_ROOT,
-                               f"RESIDENT_r{rnd}.json"), "w") as f:
-            json.dump(results, f, indent=1)
+        write_results("RESIDENT.json", results)
         return 0 if ok else 1
     finally:
         shutil.rmtree(work, ignore_errors=True)

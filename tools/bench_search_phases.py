@@ -1,8 +1,7 @@
-"""Phase-split of the headline search kernel on chip (VERDICT r04 task 2).
+"""Phase-split of the headline search kernel on the device.
 
-The question: BENCH r04's 114.8 M kq/s implies ~147 GB/s effective
-gather (rate/FILES * NH * 2048 B rows), ~18% below the ~179 GB/s this
-repo measured for raw W=512-row gathers -- where does the gap live?
+The question: how much of the bench kernel's time is the slice gather,
+and how much the seed AND, the k-mer AND tree and the CSA popcount?
 
 Phases, all at the EXACT bench shape (2^BENCH_LOG2_L x 512 uint32, 8
 files fused, NQ x NK queries, 5 seeds), all device-chained (N dependent
@@ -17,7 +16,7 @@ two N values, readback at the end):
 
 Each phase reports ms/iter, effective gather GB/s (gathered rows x
 2 KiB / time) and the delta vs the previous phase. Writes
-SEARCH_PHASES_r{KWAGE_ROUND}.json at the repo root.
+results/SEARCH_PHASES.json under the checkout.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO_ROOT)
 
 import numpy as np
+from results import write_results  # noqa: E402
 
 LOG2_L = int(os.environ.get("BENCH_LOG2_L", "22"))
 FILES = 8
@@ -41,19 +41,15 @@ NH = 5
 
 
 def main() -> int:
-    from kwage_tpu.utils.runtime import pin_platform_from_env
-
-    pin_platform_from_env()
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/kwage_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from kwage.utils.runtime import enable_compile_cache, require_accelerator
 
-    from kwage_tpu.ops.search import (
+    require_accelerator("bench_search_phases.py")
+    enable_compile_cache()
+
+    from kwage.ops.search import (
         _gather_and_reduce_seeds,
         complete_kernel,
         counts_kernel,
@@ -142,13 +138,12 @@ def main() -> int:
             "csa_popcount": round(tn - t5, 3),
         },
         "caveats": [
-            "gather1 exceeds HBM peak (~819 GB/s on v5e) so it is NOT a "
-            "bandwidth measure: with a single seed the only cross-"
+            "gather1 is NOT a bandwidth measure: with a single seed the "
+            "only cross-"
             "iteration dependency is the scalar XOR accumulator, letting "
             "the scheduler overlap iterations' DMA freely; do not derive "
             "per-seed cost from it. The trusted baseline is gather5_and "
-            "(the production seed phase), which lands at the "
-            "independently measured W=512 gather ceiling.",
+            "(the production seed phase).",
             "kmer_tree_and and csa_popcount are measured serial on top "
             "of gather5_and (tc==t5+delta exactly): XLA schedules the "
             "dependent reduction after the gather with no overlap. That "
@@ -156,10 +151,7 @@ def main() -> int:
         ],
     }
     print(json.dumps(out), flush=True)
-    rnd = os.environ.get("KWAGE_ROUND", "05")
-    with open(os.path.join(_REPO_ROOT,
-                           f"SEARCH_PHASES_r{rnd}.json"), "w") as f:
-        json.dump(out, f, indent=1)
+    write_results("SEARCH_PHASES.json", out)
     return 0
 
 

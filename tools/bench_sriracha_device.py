@@ -1,6 +1,6 @@
 """On-chip SriRachA device-path bench: end-to-end Mbp/s at a given k.
 
-Measures kwage_tpu.sriracha.device.search_reads_device over a synthetic
+Measures kwage.sriracha.device.search_reads_device over a synthetic
 read stream (the reference's per-read kernel loop, sra_stream.cpp:525-543
 + search_by_kmer.cpp), INCLUDING host-side batching/packing and the
 per-batch np.asarray readbacks -- i.e. what a user of `sriracha --device`
@@ -44,8 +44,12 @@ def main() -> None:
     path = sys.argv[4] if len(sys.argv) > 4 else "auto"
     subj_kmers = int(sys.argv[5]) if len(sys.argv) > 5 else 2048
 
-    from kwage_tpu.sriracha.engine import SrirachaOptions, canonical_kmers
-    from kwage_tpu.sriracha.device import search_reads_device
+    from kwage.sriracha.engine import SrirachaOptions, canonical_kmers
+    from kwage.sriracha.device import search_reads_device
+    from kwage.utils.runtime import enable_compile_cache, require_accelerator
+
+    require_accelerator("bench_sriracha_device.py")
+    enable_compile_cache()
 
     rng = np.random.default_rng(7)
     bases = np.array(list("ACGT"))
@@ -82,9 +86,9 @@ def main() -> None:
     # the device kernel's own rate from host packing + transfer RTTs.
     import jax
     import jax.numpy as jnp
-    from kwage_tpu.sriracha.device import (
+    from kwage.sriracha.device import (
         _read_batch_kernel_hash, _read_batch_kernel_tables,
-        _build_hash_group, build_subject_table, _table_k_limit,
+        _build_hash_group, build_subject_table, uses_dense_table,
     )
 
     block = np.zeros((batch, read_len), dtype=np.uint8)
@@ -94,11 +98,8 @@ def main() -> None:
     block_d, lengths_d = jnp.asarray(block), jnp.asarray(lengths)
     ns_groups = (len(subjects),)
 
-    if path == "auto":  # mirror search_reads_device's measured router
-        total_kmers = sum(s.size for _, s in subjects)
-        hash_max = int(os.environ.get("KWAGE_SRIRACHA_HASH_MAX", "65536"))
-        use_lut = k <= _table_k_limit() and (
-            hash_max <= 0 or total_kmers > hash_max)
+    if path == "auto":  # search_reads_device's own router
+        use_lut = uses_dense_table(subjects, k)
     else:
         use_lut = path == "lut"
     if use_lut:

@@ -26,11 +26,11 @@ N = int(os.environ.get("DRY_N", "50000"))
 
 
 def main() -> int:
-    import kwage_tpu.parallel.maestro as maestro_mod
-    from kwage_tpu.core import BloomParam, FilterInfo, str_to_accession
-    from kwage_tpu.core.hash import MURMUR_HASH_32
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    import kwage.parallel.maestro as maestro_mod
+    from kwage.core import BloomParam, FilterInfo, str_to_accession
+    from kwage.core.hash import MURMUR_HASH_32
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         STATUS_DATABASE_SUCCESS,
         LocalFastaResolver,
         Maestro,

@@ -11,7 +11,7 @@ all-reduce (the psum over "filters"). This tool compiles all three
 programs on an 8-device virtual CPU mesh, greps the HLO for collective
 ops, computes their payload bytes from the result shapes, and appends a
 2-process x 4-virtual-device jax.distributed weak-scaling point so the
-DCN boundary is inside a real measurement. Writes SCALING_r{N}.json.
+DCN boundary is inside a real measurement. Writes results/SCALING.json.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ sys.path.insert(0, _REPO_ROOT)
 os.environ["PYTHONPATH"] = _REPO_ROOT + (
     os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""
 )
+
+from results import write_results  # noqa: E402
 
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
@@ -64,8 +66,8 @@ def main() -> int:
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from kwage_tpu.ops.search import complete_kernel, counts_kernel
-    from kwage_tpu.parallel.sharded_search import (
+    from kwage.ops.search import complete_kernel, counts_kernel
+    from kwage.parallel.sharded_search import (
         _sharded,
         _total_hits_kernel,
     )
@@ -156,10 +158,7 @@ def main() -> int:
         report["weak_scaling_4proc_x2dev"] = weak_point(4, 2, 8477)
     weak = report.get("weak_scaling_2proc_x4dev")
 
-    rnd = os.environ.get("KWAGE_ROUND", "04")
-    out_path = os.path.join(_REPO_ROOT, f"SCALING_r{rnd}.json")
-    with open(out_path, "w") as f:
-        json.dump(report, f, indent=1)
+    out_path = write_results("SCALING.json", report)
     print(json.dumps({"claim_ok": report["claim_ok"],
                       "out": out_path,
                       "total_hits_collectives":

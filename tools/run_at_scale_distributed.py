@@ -28,7 +28,7 @@ import time
 # Runnable straight from a checkout, with or without `pip install -e .`.
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO_ROOT)
-# Child processes (python -m kwage_tpu.cli.*) need the same: prepend the
+# Child processes (python -m kwage.cli.*) need the same: prepend the
 # repo root to PYTHONPATH so spawned CLIs import from this checkout too.
 os.environ["PYTHONPATH"] = _REPO_ROOT + (
     os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""
@@ -58,20 +58,20 @@ def measure_queue_overhead(work, infos, k=300):
     replaces."""
     import statistics
 
-    from kwage_tpu.io.inventory import write_inventory
-    from kwage_tpu.parallel.maestro import (
+    from kwage.io.inventory import write_inventory
+    from kwage.parallel.maestro import (
         Maestro,
         MaestroOptions,
         SourceResolver,
         STATUS_BLOOM_SUCCESS,
         STATUS_DATABASE_SUCCESS,
     )
-    from kwage_tpu.parallel.remote import (
+    from kwage.parallel.remote import (
         CoordinatorServer,
         _param_to_dict,
         _send_msg,
     )
-    from kwage_tpu.core.params import BloomParam
+    from kwage.core.params import BloomParam
 
     qdir = os.path.join(work, "qoverhead")
     os.makedirs(qdir, exist_ok=True)
@@ -149,8 +149,8 @@ def measure_queue_overhead(work, infos, k=300):
 
 
 def main() -> int:
-    from kwage_tpu.core import FilterInfo, str_to_accession
-    from kwage_tpu.io.inventory import write_inventory
+    from kwage.core import FilterInfo, str_to_accession
+    from kwage.io.inventory import write_inventory
 
     n_acc = int(os.environ.get("SCALE_N_ACC", 1000))
     genome = int(os.environ.get("SCALE_GENOME", 20000))
@@ -181,7 +181,7 @@ def main() -> int:
     def maestro_args(scratch, extra):
         # --status is CWD-relative by default (the reference's behavior):
         # pin it per scratch or concurrent/sequential runs share state.
-        return [sys.executable, "-m", "kwage_tpu.cli.maestro",
+        return [sys.executable, "-m", "kwage.cli.maestro",
                 "--meta", inv, "--scratch", scratch,
                 "--status", os.path.join(scratch, "status.bin"),
                 "--source-dir", src, "--s3.no-write",
@@ -208,7 +208,7 @@ def main() -> int:
     # interpreter startup.
     wrapper = (
         "import sys\n"
-        "import kwage_tpu.cli.maestro as mm\n"
+        "import kwage.cli.maestro as mm\n"
         "print('READY', flush=True)\n"
         "sys.stdin.readline()\n"
         "sys.exit(mm.main(sys.argv[1:]))\n")
@@ -295,7 +295,7 @@ def main() -> int:
 
     def search(dbdir):
         out = subprocess.run(
-            [sys.executable, "-m", "kwage_tpu.cli.kwage", "-d",
+            [sys.executable, "-m", "kwage.cli.kwage", "-d",
              os.path.join(dbdir, "database"), "-t", "0.8", "-i", qf,
              "--o.json"],
             capture_output=True, text=True)
@@ -400,7 +400,7 @@ def main() -> int:
         env["KWAGE_WORKER_PULL"] = "4"  # keep tail balance at high latency
 
         def lat_args(scratch, extra):
-            return [sys.executable, "-m", "kwage_tpu.cli.maestro",
+            return [sys.executable, "-m", "kwage.cli.maestro",
                     "--meta", lat_inv, "--scratch", scratch,
                     "--status", os.path.join(scratch, "status.bin"),
                     "--stream", "--s3.no-write",
@@ -459,7 +459,7 @@ def main() -> int:
     oracle_same = None
     oracle = "/tmp/oracle/kwage"
     if os.path.exists(oracle):
-        from kwage_tpu.cli.kwage import find_db_files
+        from kwage.cli.kwage import find_db_files
 
         dbs = find_db_files([os.path.join(dscratch, "database")])
         dargs = []

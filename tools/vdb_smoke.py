@@ -41,7 +41,7 @@ def main(argv: list[str] | None = None) -> int:
         del args[i:i + 2]
     accession = args[0] if args else None
 
-    from kwage_tpu.sriracha import vdb
+    from kwage.sriracha import vdb
 
     report: dict = {
         "library": vdb._find_lib_path(),
@@ -60,7 +60,7 @@ def main(argv: list[str] | None = None) -> int:
             "KWAGE_VDB_LIB=/path/to/libncbi-vdb.so (symbol-subset builds "
             "are rejected at bind time)")
     elif accession:
-        from kwage_tpu.sriracha.sra_source import DownloadError
+        from kwage.sriracha.sra_source import DownloadError
 
         lib = vdb._load()
         mgr = vdb._open_manager(lib)
